@@ -1,0 +1,51 @@
+"""Solver configuration — the same frozen dataclass as
+``nekstab_next_tpu/config.py`` ``SolverConfig``, field for field, so one
+config built for either package builds the other.
+
+The port implements a subset of the options.  Where the JAX package quietly
+falls back to another path, the port raises where it reads an option it does
+not implement (``stepper/navier_stokes.py`` ``NavierStokes``):
+
+* ``lanes_layout``, ``cg_fixed_iters`` and ``fused_pressure=False`` are TPU
+  workarounds and are not ported;
+* ``pressure_precond='schwarz'``, ``velocity_precond='block'``,
+  ``pressure_operator`` other than ``'pnpn2'``, ``dealias=False`` and
+  ``finite_difference`` are not ported yet;
+* ``fused_solves`` needs float32 fields.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Time-integration / inner-solver knobs (field meanings as in the JAX
+    package's ``SolverConfig``)."""
+
+    dt: Optional[float] = None  # None -> from target_cfl
+    target_cfl: float = 0.5
+    bdf_order: int = 3  # BDF3/EXT3 (the stepper ramps 1 -> 3)
+    pressure_tol: float = 1e-8
+    velocity_tol: float = 1e-9
+    scalar_tol: float = 1e-9
+    pressure_maxiter: int = 2000
+    velocity_maxiter: int = 500
+    scalar_maxiter: int = 500
+    dealias: bool = True  # 3/2 over-integration of convection
+    fdm_precond: bool = True  # FDM element preconditioner; False -> Jacobi
+    pressure_operator: str = "pnpn2"  # the port implements 'pnpn2' only
+    finite_difference: bool = False  # not ported
+    fd_order: int = 2
+    warm_start: bool = True  # residual-correction warm start of both solves
+    pressure_precond: str = "fdm"  # 'fdm' | 'block' ('schwarz' not ported)
+    pressure_patch_overlap: str = "face"  # 'schwarz' only
+    velocity_precond: str = "fdm"  # 'fdm' ('block' not ported)
+    pressure_direct: bool = False  # lanes path only (not ported)
+    fused_solves: bool = False  # both inner solves as one CUDA kernel each
+    fused_pressure: bool = True  # False is a TPU-compiler workaround
+    mixed_ir_cycles: int = 2  # mixed-precision path (not ported)
+    cg_fixed_iters: bool = False  # TPU While-trip workaround (not ported)
+    lanes_layout: bool = False  # TPU lanes layout (not ported)

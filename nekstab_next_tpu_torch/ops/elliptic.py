@@ -1,0 +1,85 @@
+"""Assembled SPD elliptic solves (port of ``nekstab_next_tpu/ops/elliptic.py``).
+
+The assembled operator is conjugated with the Euclid-orthogonal projector
+onto the continuous-and-unmasked subspace,
+
+    P = mask . dsavg . mask,      A = P K_local P + (I - P),
+
+so ``A`` is Euclid-SPD and on ``range(P)`` the system ``A x = P r_local`` is
+exactly the assembled Galerkin system.  The CG iteration runs in ``range(P)``
+with ``A_sub = P K_local`` (one gather-scatter per apply)."""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .cg import cg_solve
+
+
+def make_projector(sem, mask: torch.Tensor) -> Callable:
+    def P(x):
+        return mask * sem.dsavg(mask * x)
+
+    return P
+
+
+def elliptic_solve(
+    sem,
+    local_op: Callable,
+    rhs_local: torch.Tensor,
+    mask: torch.Tensor,
+    tol: float,
+    maxiter: int,
+    diag_local: Optional[torch.Tensor] = None,
+    fdm: Optional[tuple] = None,
+    vblocks=None,
+    fused_solve: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Solve the assembled system  (P local_op P) x = P rhs_local  by PCG.
+
+    ``local_op``   : unassembled element-local SPD weak operator
+    ``rhs_local``  : unassembled local weak RHS (will be P-projected)
+    ``mask``       : 1 = free dof, 0 = Dirichlet (may carry component axes)
+    ``diag_local`` : local diagonal of ``local_op`` (Jacobi preconditioner)
+    ``fdm``        : (h1, h2) — FDM block preconditioner instead of Jacobi
+    ``fused_solve``: the whole subspace CG as one call (ops/fused_cg.py)
+    """
+    if vblocks is not None:
+        raise NotImplementedError(
+            "velocity_precond='block' (exact velocity blocks) is not ported"
+        )
+    P = make_projector(sem, mask)
+
+    def A(x):
+        Px = P(x)
+        return P(local_op(Px)) + (x - Px)
+
+    rhs = P(rhs_local)
+    dot = lambda a, b: torch.sum(a * b)
+
+    def A_sub(x):
+        return P(local_op(x))
+
+    if fdm is not None:
+        h1, h2 = fdm
+
+        def M_sub(r):
+            return P(sem.fdm_apply(r, h1, h2))
+
+    elif diag_local is not None:
+        dinv = 1.0 / sem.dssum(diag_local)
+        if dinv.dim() < rhs.dim():
+            dinv = dinv.reshape(tuple(dinv.shape) + (1,) * (rhs.dim() - dinv.dim()))
+
+        def M_sub(r):
+            return P(dinv * r)
+
+    else:
+        M_sub = None
+
+    return cg_solve(
+        A, rhs, tol=tol, maxiter=maxiter, dot=dot,
+        inner_op=(A_sub, P, M_sub), fused_solve=fused_solve,
+    )

@@ -1,0 +1,260 @@
+"""Whole-solve CG kernels for the two elliptic inner solves, with their plain
+PyTorch versions.
+
+Port of ``nekstab_next_tpu/ops/fused_cg.py``.  Each class runs an entire
+preconditioned-CG solve as ONE hand-written CUDA kernel launch on Hopper
+(``csrc/fused_helmholtz_cg.cu``, ``csrc/fused_pressure_cg.cu``):
+
+* :class:`FusedHelmholtzCG` — ``P (h1 K + h2 B) P x = rhs`` with the FDM
+  preconditioner ``P fdm P`` (the velocity solve), C components at once;
+* :class:`FusedPressureCG` — ``E q = D M^-1 D^T q = rhs`` on the Gauss
+  pressure space with the exact element-block inverse + Q1 vertex coarse
+  level (the pressure solve).
+
+``solve`` launches the kernel for a CUDA tensor and runs the plain PyTorch
+version (``plain``) only for a CPU tensor; there is no fallback from one to
+the other.  ``plain`` is the same function — the same live-masked PCG, the
+same early exit at ``rr <= tol^2 bb`` and ``maxiter`` cap, the same FDM
+threshold and preconditioners — written with the ``SEM`` operators; the
+tests hold it against the JAX kernels and the card holds the kernels
+against it.  Each instance counts its kernel launches in ``launches``.
+
+Scope: 2-D, single device, float32 fields, n = order + 1 in 4..8 (one
+element's n*n nodes fit a 64-thread slot).  Unlike the TPU kernels, any
+conforming mesh works: the direct-stiffness sum is a gather over the
+node->copies table, not a shift decomposition.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cg import pcg
+from .schwarz import make_pressure_operator
+
+KERNEL_N = range(4, 9)  # supported n = order + 1
+
+
+def check_kernel_scope(sem) -> None:
+    """Raise ValueError if the fused kernels cannot take this SEM."""
+    if sem.dtype != torch.float32:
+        raise ValueError(
+            f"fused_solves needs float32 fields (got {sem.dtype}); the f64 "
+            "path runs the plain PyTorch solves"
+        )
+    if sem.n not in KERNEL_N:
+        raise ValueError(
+            f"fused CG kernels take n = order + 1 in {KERNEL_N.start}.."
+            f"{KERNEL_N.stop - 1} (got n = {sem.n})"
+        )
+
+
+def _csr(keys: np.ndarray, nkeys: int):
+    """(off, idx) int32: slots grouped by key, in increasing slot order."""
+    idx = np.argsort(keys, kind="stable")
+    off = np.searchsorted(keys[idx], np.arange(nkeys + 1))
+    return off.astype(np.int32), idx.astype(np.int32)
+
+
+class _FusedBase:
+    def __init__(self, sem, maxiter: int, tol: float):
+        check_kernel_scope(sem)
+        self.sem = sem
+        self.n, self.E = sem.n, sem.nelem
+        self.maxiter = int(maxiter)
+        self.tol = float(tol)
+        self.launches = 0
+        self._dev = None  # device-side kernel constants, built at first launch
+
+    def _gather_consts(self, dev) -> dict:
+        sem = self.sem
+        off, idx = _csr(sem.gid_np, sem.nglobal)
+        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+        return dict(gid=i32(sem.gid_np), gs_off=i32(off), gs_idx=i32(idx))
+
+    def _check(self, x: torch.Tensor, shape) -> None:
+        if x.device.type != "cuda":
+            raise ValueError(f"expected a CUDA tensor, got device {x.device}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"expected float32, got {x.dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"expected shape {tuple(shape)}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError("expected a contiguous tensor")
+        if x.device != self.sem.device:
+            raise ValueError(f"tensor on {x.device}, SEM on {self.sem.device}")
+
+    @staticmethod
+    def _raise_on(err: int, name: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+class FusedHelmholtzCG(_FusedBase):
+    """One-launch PCG solve of ``P (h1 K + h2 B) P x = rhs`` for rhs in
+    range(P), ``P = mask inv_mult dssum(mask .)``, preconditioned by
+    ``P fdm P`` with the FDM denominator rebuilt from the runtime h1, h2
+    (threshold 1e-6 ref).  Early exit on ||r|| <= tol ||b|| over all
+    components together, at most ``maxiter`` iterations.
+
+    Replaces the TPU kernel ``nekstab_next_tpu/ops/fused_cg.py``
+    ``FusedHelmholtzCG._build_call``."""
+
+    def __init__(self, sem, mask: torch.Tensor, maxiter: int, tol: float):
+        super().__init__(sem, maxiter, tol)
+        mask = mask if mask.dim() == 4 else mask[..., None]
+        self.C = int(mask.shape[-1])
+        self.mask = mask.to(device=sem.device, dtype=sem.dtype).contiguous()
+
+    def _P(self, y: torch.Tensor) -> torch.Tensor:
+        sem, m = self.sem, self.mask
+        return m * (sem.inv_mult[..., None] * sem.dssum(m * y))
+
+    def plain(self, rhs: torch.Tensor, h1, h2) -> torch.Tensor:
+        """The plain PyTorch version of the kernel (any device)."""
+        sem = self.sem
+        squeeze = rhs.dim() == 3
+        b = rhs[..., None] if squeeze else rhs
+
+        def helm(y):
+            return torch.stack(
+                [sem.helmholtz_local(y[..., c], h1, h2) for c in range(self.C)], dim=-1
+            )
+
+        x = pcg(lambda y: self._P(helm(y)), b,
+                precond=lambda r: self._P(sem.fdm_apply(r, h1, h2, rel=1e-6)),
+                tol=self.tol, maxiter=self.maxiter,
+                dot=lambda a, c: torch.sum(a * c))
+        return x[..., 0] if squeeze else x
+
+    def solve(self, rhs: torch.Tensor, h1, h2) -> torch.Tensor:
+        """Solve A x = rhs for rhs in range(P); rhs (E, n, n[, C])."""
+        if rhs.device.type == "cpu":
+            return self.plain(rhs, h1, h2)
+        return self._launch(rhs, float(h1), float(h2))
+
+    def _launch(self, rhs: torch.Tensor, h1: float, h2: float) -> torch.Tensor:
+        from ._cuda import library
+
+        squeeze = rhs.dim() == 3
+        b = rhs[..., None] if squeeze else rhs
+        self._check(b, (self.E, self.n, self.n, self.C))
+        if self._dev is None:
+            self._dev = self._device_consts(b.device)
+        c = self._dev
+        out = torch.empty_like(b)
+        scratch = torch.empty((5,) + tuple(b.shape), dtype=b.dtype, device=b.device)
+        part = torch.empty(4 * self.E, dtype=torch.float64, device=b.device)
+        lib = library()
+        err = lib.nsk_fused_helmholtz_cg(
+            b.device.index or 0, self.n, self.E, self.C, self.maxiter, self.tol,
+            h1, h2, b.data_ptr(), out.data_ptr(),
+            *(scratch[k].data_ptr() for k in range(5)), part.data_ptr(),
+            *(c[k].data_ptr() for k in ("D", "S", "lam", "fgeo", "g11", "g12",
+                                        "g22", "bm", "imult", "vmask",
+                                        "gid", "gs_off", "gs_idx")),
+            torch.cuda.current_stream(b.device).cuda_stream,
+        )
+        self._raise_on(err, "fused_helmholtz_cg")
+        self.launches += 1
+        return out[..., 0] if squeeze else out
+
+    def _device_consts(self, dev) -> dict:
+        sem = self.sem
+        f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+        hl = sem.fdm_len.double()
+        fgeo = torch.stack(
+            [hl[:, 1] / hl[:, 0], hl[:, 0] / hl[:, 1], hl[:, 0] * hl[:, 1]], dim=1
+        )
+        c = dict(D=f32(sem.D), S=f32(sem.fdm_S), lam=f32(sem.fdm_lam),
+                 fgeo=f32(fgeo), g11=f32(sem.g11), g12=f32(sem.g12),
+                 g22=f32(sem.g22), bm=f32(sem.bm), imult=f32(sem.inv_mult),
+                 vmask=f32(self.mask))
+        c.update(self._gather_consts(dev))
+        return c
+
+
+class FusedPressureCG(_FusedBase):
+    """One-launch PCG solve of the PnPn-2 pressure system
+    ``E q = D M^-1 D^T q = rhs`` on the Gauss space, preconditioned by the
+    exact element-block inverse (``sem.pblock_inv``) + Q1 vertex coarse
+    level, with the optional mean projection of enclosed flows applied to
+    the rhs and the solution.
+
+    Replaces the TPU kernel ``nekstab_next_tpu/ops/fused_cg.py``
+    ``FusedPressureCG._build_call``."""
+
+    def __init__(self, sem, maxiter: int, tol: float, project_mean: bool = False):
+        super().__init__(sem, maxiter, tol)
+        sem.setup_pressure_blocks()
+        self.project_mean = bool(project_mean)
+        self.npr = sem.npr
+        self._E_op = make_pressure_operator(sem)
+
+    def _project(self, q: torch.Tensor) -> torch.Tensor:
+        return q - torch.sum(q) / q.numel()
+
+    def plain(self, rhs: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch version of the kernel (any device)."""
+        b = self._project(rhs) if self.project_mean else rhs
+        x = pcg(self._E_op, b, precond=self.sem.pressure_precond_block,
+                tol=self.tol, maxiter=self.maxiter,
+                dot=lambda a, c: torch.sum(a * c))
+        return self._project(x) if self.project_mean else x
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """Solve E q = rhs; rhs (E, npr, npr)."""
+        if rhs.device.type == "cpu":
+            return self.plain(rhs)
+        return self._launch(rhs)
+
+    def _launch(self, rhs: torch.Tensor) -> torch.Tensor:
+        from ._cuda import library
+
+        self._check(rhs, (self.E, self.npr, self.npr))
+        if self._dev is None:
+            self._dev = self._device_consts(rhs.device)
+        c = self._dev
+        dev = rhs.device
+        nc = self.sem.pc_nc
+        out = torch.empty_like(rhs)
+        scratch = torch.empty((4,) + tuple(rhs.shape), dtype=rhs.dtype, device=dev)
+        w = torch.empty((self.E, self.n, self.n, 2), dtype=rhs.dtype, device=dev)
+        rc = torch.empty((self.E, 4), dtype=rhs.dtype, device=dev)
+        xc = torch.empty(nc, dtype=rhs.dtype, device=dev)
+        part = torch.empty(4 * self.E, dtype=torch.float64, device=dev)
+        lib = library()
+        err = lib.nsk_fused_pressure_cg(
+            dev.index or 0, self.n, self.E, nc, self.maxiter, self.tol,
+            int(self.project_mean), rhs.data_ptr(), out.data_ptr(),
+            *(scratch[k].data_ptr() for k in range(4)), w.data_ptr(),
+            rc.data_ptr(), xc.data_ptr(), part.data_ptr(),
+            *(c[k].data_ptr() for k in ("D", "Jg", "Kc", "rx", "ry", "sx", "sy",
+                                        "bm", "binv", "vmask", "pinv", "Acinv",
+                                        "cid", "vtx_off", "vtx_idx",
+                                        "gid", "gs_off", "gs_idx")),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        self._raise_on(err, "fused_pressure_cg")
+        self.launches += 1
+        return out
+
+    def _device_consts(self, dev) -> dict:
+        sem = self.sem
+        f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+        # Q1 restriction folded with the Gauss -> GLL lift, in float64:
+        # rc[e, c] = sum_ab Kc[c, a, b] r[e, a, b]
+        Kc = torch.einsum("cij,ai,bj->cab", sem.pc_Jc.double(),
+                          sem.Jp.double(), sem.Jp.double())
+        c = dict(D=f32(sem.D), Jg=f32(sem.Jpg), Kc=f32(Kc),
+                 rx=f32(sem.rx), ry=f32(sem.ry), sx=f32(sem.sx), sy=f32(sem.sy),
+                 bm=f32(sem.bm), binv=f32(sem.binv_assembled),
+                 vmask=f32(sem.vmask), pinv=f32(sem.pblock_inv),
+                 Acinv=f32(sem.pc_Acinv))
+        cid = sem.pc_cid_np
+        off, idx = _csr(cid.reshape(-1), sem.pc_nc)
+        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+        c.update(cid=i32(cid), vtx_off=i32(off), vtx_idx=i32(idx))
+        c.update(self._gather_consts(dev))
+        return c

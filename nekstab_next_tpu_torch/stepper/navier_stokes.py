@@ -1,0 +1,323 @@
+"""Incompressible Navier-Stokes time-stepper, 2-D PnPn-2 (port of
+``nekstab_next_tpu/stepper/navier_stokes.py``).
+
+Scheme: BDFk/EXTk (k ramps 1->3) with incremental pressure correction on the
+discontinuous P_{N-2} Gauss pressure space:
+
+1. explicit terms  E^n = -C(u^n)u^n + B f^n  (dealiased weak convection,
+   sponge + user forcing), extrapolated with EXTk;
+2. velocity Helmholtz solve  (g0/dt B + nu K) u* = rhs  with Dirichlet lift
+   and a residual-correction warm start from u^n;
+3. pressure-increment solve  E dp = -(g0/dt) D u*,  E = D M^-1 D^T, warm
+   started from the previous increment;
+4. projection  u <- u* + (dt/g0) M^-1 D^T dp  (discretely divergence-free),
+   p <- p + dp.
+
+The tangent step (``stepper/linearized.py``) is the same :meth:`_core` run
+with the explicit term linearized about a frozen base and the Dirichlet lift
+set to zero; the step is affine in its fields apart from the convection.
+
+Every option the port does not implement raises where it is read; the JAX
+stepper would quietly take another path instead.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..config import SolverConfig
+from ..ops.cg import cg_solve
+from ..ops.core import SEM
+from ..ops.elliptic import elliptic_solve
+from .state import FlowState, initial_state
+
+# BDFk / EXTk coefficients, index k-1 (padded to length 3)
+_BDF = {
+    1: (1.0, [1.0, 0.0, 0.0]),
+    2: (1.5, [2.0, -0.5, 0.0]),
+    3: (11.0 / 6.0, [3.0, -1.5, 1.0 / 3.0]),
+}
+_EXT = {
+    1: [1.0, 0.0, 0.0],
+    2: [2.0, -1.0, 0.0],
+    3: [3.0, -3.0, 1.0],
+}
+
+
+def _check_supported(sem: SEM, solver: SolverConfig, mixed_precision: bool,
+                     u_bc_fn, scalar_diff) -> None:
+    """Raise for every option the port does not implement."""
+    unsupported = {
+        "mixed_precision": mixed_precision,
+        "u_bc_fn (time-dependent Dirichlet data)": u_bc_fn is not None,
+        "scalars (scalar_diff)": bool(scalar_diff),
+        "SolverConfig.lanes_layout": solver.lanes_layout,
+        "SolverConfig.pressure_direct": solver.pressure_direct,
+        "SolverConfig.cg_fixed_iters": solver.cg_fixed_iters,
+        "SolverConfig.finite_difference": solver.finite_difference,
+        "SolverConfig.dealias=False": not solver.dealias,
+        "SolverConfig.fused_pressure=False": solver.fused_solves and not solver.fused_pressure,
+        "SolverConfig.pressure_precond='schwarz'": solver.pressure_precond == "schwarz",
+        "SolverConfig.velocity_precond='block'": solver.velocity_precond == "block",
+        f"SolverConfig.pressure_operator={solver.pressure_operator!r}":
+            solver.pressure_operator != "pnpn2",
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError("not ported: " + ", ".join(bad))
+    if solver.pressure_precond not in ("fdm", "block"):
+        raise ValueError(f"unknown pressure_precond {solver.pressure_precond!r}")
+    if solver.velocity_precond != "fdm":
+        raise ValueError(f"unknown velocity_precond {solver.velocity_precond!r}")
+    if solver.bdf_order != 3:
+        raise NotImplementedError("only the BDF1->3 ramp (bdf_order=3) is ported")
+
+
+class NavierStokes:
+    """Matrix-free incompressible NS stepper on one SEM mesh.
+
+    Parameters
+    ----------
+    sem : SEM operator context
+    viscosity : kinematic viscosity (1/Re)
+    dt : time step (constant)
+    u_bc : (nelem, n, n, 2) Dirichlet values (zero except at Dirichlet nodes)
+    forcing : optional ``f(u, t) -> (nelem,n,n,2)`` pointwise acceleration
+    sponge_ref : field toward which the sponge damps (None: no sponge term)
+    solver : SolverConfig
+
+    ``mixed_precision``, ``u_bc_fn`` and the scalar arguments of the JAX
+    stepper are accepted so a call written for it fails loudly here."""
+
+    def __init__(
+        self,
+        sem: SEM,
+        viscosity: float,
+        dt: float,
+        u_bc: Optional[torch.Tensor] = None,
+        forcing: Optional[Callable] = None,
+        sponge_ref: Optional[torch.Tensor] = None,
+        solver: SolverConfig = SolverConfig(),
+        mixed_precision: bool = False,
+        u_bc_fn: Optional[Callable] = None,
+        scalar_diff: Optional[Tuple[float, ...]] = None,
+    ):
+        _check_supported(sem, solver, mixed_precision, u_bc_fn, scalar_diff)
+        self.sem = s = sem
+        self.nu = float(viscosity)
+        self.dt = float(dt)
+        self.solver = solver
+        zeros_u = torch.zeros(tuple(s.bm.shape) + (2,), dtype=s.dtype, device=s.device)
+        u_bc = zeros_u if u_bc is None else u_bc.to(device=s.device, dtype=s.dtype)
+        # keep only Dirichlet-node values in the lift field
+        self.u_bc = (1.0 - s.vmask) * u_bc
+        self.forcing = forcing
+        self.sponge_ref = sponge_ref
+        # local stiffness diagonal, for the Jacobi velocity preconditioner
+        self._kdiag_local = None if solver.fdm_precond else s.stiffness_diag()
+
+        if solver.pressure_precond == "block":
+            s.setup_pressure_blocks()
+
+        # both inner solves as one CUDA kernel each (ops/fused_cg.py)
+        self.fused_v = None
+        self.fused_p = None
+        if solver.fused_solves:
+            from ..ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
+
+            self.fused_v = FusedHelmholtzCG(
+                s, s.vmask, maxiter=solver.velocity_maxiter, tol=solver.velocity_tol
+            )
+            self.fused_p = FusedPressureCG(
+                s, maxiter=solver.pressure_maxiter, tol=solver.pressure_tol,
+                project_mean=not s.has_pressure_dirichlet,
+            )
+
+    # ------------------------------------------------------------------
+    @property
+    def p_shape(self):
+        return self.sem.p_shape
+
+    def make_state(self, u, p=None, time: float = 0.0) -> FlowState:
+        s = self.sem
+        if p is None:
+            p = torch.zeros(self.p_shape, dtype=s.dtype, device=s.device)
+        return initial_state(u.to(s.dtype), p=p, time=time, dtype=s.dtype,
+                             warm_start=self.solver.warm_start)
+
+    def _convect_all(self, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Weak convection of every component of u by c."""
+        s = self.sem
+        return torch.stack([s.convect(c, u[..., d]) for d in range(u.shape[-1])], dim=-1)
+
+    def _explicit_weak(self, u: torch.Tensor, t: float, fc=None) -> torch.Tensor:
+        """Weak explicit terms E = -C(u)u + B lam (u_ref - u) + B f(u,t) + B fc."""
+        s = self.sem
+        E = -self._convect_all(u, u)
+        bm = s.bm[..., None]
+        if self.sponge_ref is not None:
+            E = E + bm * s.sponge[..., None] * (self.sponge_ref - u)
+        if self.forcing is not None:
+            E = E + bm * self.forcing(u, t)
+        if fc is not None:
+            E = E + bm * fc
+        return E
+
+    def _explicit_tangent(self, base: torch.Tensor, du: torch.Tensor) -> torch.Tensor:
+        """Derivative of :meth:`_explicit_weak` at ``base`` along ``du``
+        (without a forcing hook): the convection is bilinear and the sponge
+        target is a constant."""
+        s = self.sem
+        E = -(self._convect_all(base, du) + self._convect_all(du, base))
+        if self.sponge_ref is not None:
+            E = E - s.bm[..., None] * s.sponge[..., None] * du
+        return E
+
+    # ------------------------------------------------------------------
+    def step(self, state: FlowState, fc=None) -> FlowState:
+        """Advance one time step."""
+        k = min(state.step, 2)  # 0,1,2 -> BDF1,2,3
+        carry_dp = state.dp is not None
+        fields = (state.u, state.p, state.ulag, state.nlag) + (
+            (state.dp,) if carry_dp else ()
+        )
+        out = self._core(fields, state.time, k, fc=fc)
+        return FlowState(
+            u=out[0], p=out[1], ulag=out[2], nlag=out[3],
+            time=state.time + self.dt, step=state.step + 1,
+            dp=out[4] if carry_dp else None,
+        )
+
+    def _core(self, fields: Tuple, time: float, k: int, fc=None,
+              lin_base: Optional[torch.Tensor] = None) -> Tuple:
+        """One step on the field tuple (u, p, ulag, nlag[, dp]).
+
+        ``k`` selects the BDF/EXT order (0,1,2 -> BDF1,2,3).  With
+        ``lin_base`` the step is the TANGENT step about the frozen base
+        velocity: the explicit term is linearized there and the Dirichlet
+        lift is zero (its derivative); everything else is affine in the
+        fields and runs unchanged, solves included."""
+        u0, p0, ulag0, nlag0 = fields[:4]
+        dp0 = fields[4] if len(fields) > 4 else None
+        s = self.sem
+        dt = self.dt
+        g0, b = _BDF[k + 1]
+        a = _EXT[k + 1]
+
+        if lin_base is None:
+            E0 = self._explicit_weak(u0, time, fc=fc)
+            u_bc = self.u_bc
+        else:
+            E0 = self._explicit_tangent(lin_base, u0)
+            u_bc = torch.zeros_like(u0)
+        bm = s.bm[..., None]
+        vmask = s.vmask
+        binv = s.binv_assembled[..., None]
+
+        def Minv_free(g):
+            return vmask * (binv * s.dssum(vmask * g))
+
+        # weak RHS for the Helmholtz solve, with the weak gradient of the
+        # current pressure (D^T p)
+        rhs = (
+            (1.0 / dt) * bm * (b[0] * u0 + b[1] * ulag0[0] + b[2] * ulag0[1])
+            + a[0] * E0 + a[1] * nlag0[0] + a[2] * nlag0[1]
+        )
+        rhs = rhs + s.grad_from_p(p0)
+
+        # ---- velocity Helmholtz solve with Dirichlet lift ---------------
+        h2 = g0 / dt
+
+        def helm_local(w):
+            return torch.stack(
+                [s.helmholtz_local(w[..., d], self.nu, h2) for d in range(2)], dim=-1
+            )
+
+        # warm start from the current velocity: solve for the correction
+        # only; the guess must lie in the masked continuous subspace
+        if self.solver.warm_start:
+            x0v = vmask * s.dsavg(vmask * (u0 - u_bc))
+        else:
+            x0v = torch.zeros_like(u0)
+        fused_v = None
+        if self.fused_v is not None:
+            fv = self.fused_v
+            # the kernels take contiguous tensors; einsum outputs may be views
+            fused_v = lambda r: fv.solve(r.contiguous(), self.nu, h2)
+        fdm = self.solver.fdm_precond
+        w = x0v + elliptic_solve(
+            s,
+            helm_local,
+            rhs - helm_local(u_bc + x0v),
+            vmask,
+            tol=self.solver.velocity_tol,
+            maxiter=self.solver.velocity_maxiter,
+            diag_local=None if fdm else self.nu * self._kdiag_local + h2 * s.bm,
+            fdm=(self.nu, h2) if fdm else None,
+            fused_solve=fused_v,
+        )
+        ustar = w + u_bc
+
+        # ---- pressure-increment solve on the Gauss space ----------------
+        def E_op(q):
+            return s.div_to_p(Minv_free(s.grad_from_p(q)))
+
+        x0p = dp0 if (dp0 is not None and self.solver.warm_start) else None
+        project = None
+        if not s.has_pressure_dirichlet:
+            # fully-enclosed flow: constants span null(E) exactly
+            def project(q):
+                return q - torch.sum(q) / q.numel()
+
+            if x0p is not None:
+                x0p = project(x0p)
+        rhs_p = -(g0 / dt) * s.div_to_p(ustar)
+        if x0p is not None:
+            rhs_p = rhs_p - E_op(x0p)
+        precond_p = (s.pressure_precond_block
+                     if self.solver.pressure_precond == "block"
+                     else s.pressure_precond_pnpn2)
+        dp = cg_solve(
+            E_op,
+            rhs_p,
+            precond=precond_p,
+            tol=self.solver.pressure_tol,
+            maxiter=self.solver.pressure_maxiter,
+            dot=lambda x, y: torch.sum(x * y),
+            project=project,
+            fused_solve=(
+                (lambda r: self.fused_p.solve(r.contiguous()))
+                if self.fused_p is not None else None
+            ),
+        )
+        if x0p is not None:
+            dp = dp + x0p
+
+        # ---- projection: discretely divergence-free; Dirichlet rows of the
+        # correction vanish (Minv_free masks), so BCs stay intact
+        u_new = ustar + (dt / g0) * Minv_free(s.grad_from_p(dp))
+        p_new = p0 + dp
+
+        out = (
+            u_new,
+            p_new,
+            torch.stack([u0, ulag0[0]]),
+            torch.stack([E0, nlag0[0]]),
+        )
+        if dp0 is not None:
+            out = out + (dp,)
+        return out
+
+    # ------------------------------------------------------------------
+    def advance(self, state: FlowState, nsteps: int) -> FlowState:
+        """nsteps time steps — one propagator application."""
+        for _ in range(nsteps):
+            state = self.step(state)
+        return state
+
+    def propagator(self, u0: torch.Tensor, nsteps: int, time0: float = 0.0) -> torch.Tensor:
+        """exp(T L)-style map on velocity fields: fresh state, integrate,
+        return the final velocity."""
+        return self.advance(self.make_state(u0, time=time0), nsteps).u

@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip where there is no CUDA device (the kernels have
+no CPU mode).  This file imports no jax, so it also runs on a machine
+without it:  ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
+(``tests/conftest.py`` imports jax).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
+from nekstab_next_tpu_torch.config import SolverConfig
+from nekstab_next_tpu_torch.ops.elliptic import make_projector
+from nekstab_next_tpu_torch.ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
+from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+
+pytestmark = pytest.mark.cuda
+MESH = dict(nr=4, ntheta=8, order=6)
+TIGHT_F32 = dict(pressure_tol=1e-6, velocity_tol=1e-7, pressure_maxiter=80,
+                 velocity_maxiter=40, pressure_precond="block")
+
+
+@pytest.fixture(scope="module")
+def case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return CylinderCase(**MESH, dtype=torch.float32, device="cuda",
+                        solver=SolverConfig(**TIGHT_F32, fused_solves=True))
+
+
+def rel(got, ref) -> float:
+    return float((got - ref).double().norm() / ref.double().norm())
+
+
+def test_helmholtz_kernel_matches_plain(case):
+    sem = case.sem
+    rhs = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        tuple(sem.bm.shape) + (2,)), dtype=torch.float32, device="cuda")
+    rhsP = make_projector(sem, sem.vmask)(rhs)
+    k1 = FusedHelmholtzCG(sem, sem.vmask, maxiter=10, tol=1e-6)
+    got, ref = k1.solve(rhsP, 0.0167, 100.0), k1.plain(rhsP, 0.0167, 100.0)
+    torch.cuda.synchronize()
+    assert k1.launches == 1
+    # two f32 CG paths, different summation order (bound of test_fused_cg.py:90)
+    assert rel(got, ref) < 1e-5
+
+
+@pytest.mark.parametrize("maxiter,project_mean,bound", [
+    (300, False, 1e-4),  # converged
+    (16, False, 1e-3),   # capped: iterates are roundoff-sensitive
+    (300, True, 1e-4),   # enclosed-flow mean projection
+])
+def test_pressure_kernel_matches_plain(case, maxiter, project_mean, bound):
+    sem = case.sem
+    rhs = torch.as_tensor(np.random.default_rng(0).standard_normal(sem.p_shape),
+                          dtype=torch.float32, device="cuda")
+    k2 = FusedPressureCG(sem, maxiter=maxiter, tol=1e-6, project_mean=project_mean)
+    got, ref = k2.solve(rhs), k2.plain(rhs)
+    torch.cuda.synchronize()
+    assert k2.launches == 1
+    assert rel(got, ref) < bound
+
+
+def test_kernel_runs_are_bit_reproducible(case):
+    # no float atomics: the same solve twice gives the same bits
+    sem = case.sem
+    rhs = torch.as_tensor(np.random.default_rng(1).standard_normal(sem.p_shape),
+                          dtype=torch.float32, device="cuda")
+    k2 = FusedPressureCG(sem, maxiter=16, tol=1e-6)
+    assert torch.equal(k2.solve(rhs), k2.solve(rhs))
+
+
+def test_matvec_kernels_match_plain(case):
+    ns = case.make_ns()
+    op = LinearizedOperator(ns, case.uniform_flow(), nsteps=3)
+    q = case.sem.vmask * torch.as_tensor(
+        np.random.default_rng(1).standard_normal(tuple(case.sem.bm.shape) + (2,)),
+        dtype=torch.float32, device="cuda")
+    got = op.matvec(q)
+    assert ns.fused_v.launches == 3 and ns.fused_p.launches == 3
+    ns.fused_v.solve, ns.fused_p.solve = ns.fused_v.plain, ns.fused_p.plain
+    ref = op.matvec(q)
+    # near-converged inner solves (80/40 caps): the bound of
+    # test_fused_cg.py:177 between two f32 paths
+    assert rel(got, ref) < 1e-4
+
+
+@pytest.mark.parametrize("order", [4, 7])
+def test_kernels_at_other_orders(case, order):
+    # the kernels are templated on n = order + 1; the flagship runs n = 7.
+    # Also the single-component (C = 1) velocity path.
+    other = CylinderCase(nr=3, ntheta=8, order=order, dtype=torch.float32, device="cuda",
+                         solver=SolverConfig(**TIGHT_F32, fused_solves=True))
+    sem = other.sem
+    rng = np.random.default_rng(order)
+    rhs = torch.as_tensor(rng.standard_normal(tuple(sem.bm.shape)),
+                          dtype=torch.float32, device="cuda")
+    mask = sem.vmask[..., 0]
+    rhsP = make_projector(sem, mask)(rhs)
+    k1 = FusedHelmholtzCG(sem, mask, maxiter=10, tol=1e-6)
+    assert rel(k1.solve(rhsP, 0.0167, 100.0), k1.plain(rhsP, 0.0167, 100.0)) < 1e-5
+    rhs_p = torch.as_tensor(rng.standard_normal(sem.p_shape), dtype=torch.float32,
+                            device="cuda")
+    k2 = FusedPressureCG(sem, maxiter=300, tol=1e-6)
+    assert rel(k2.solve(rhs_p), k2.plain(rhs_p)) < 1e-4
+    assert k1.launches == 1 and k2.launches == 1

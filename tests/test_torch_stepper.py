@@ -1,0 +1,141 @@
+"""The port's Navier-Stokes stepper and cylinder case against the JAX package.
+
+Both steppers run on the 32-element cylinder case with identical factors
+(the port's SEM is built from the JAX SEM's arrays, pressure blocks
+included), the same SolverConfig and the same initial field.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nekstab_next_tpu.cases.cylinder import CylinderCase as JaxCylinderCase
+from nekstab_next_tpu.config import SolverConfig as JaxSolverConfig
+from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
+from nekstab_next_tpu_torch.config import SolverConfig
+from nekstab_next_tpu_torch.interop import sem_arrays, sem_from_arrays
+from nekstab_next_tpu_torch.mesh import cylinder_mesh
+from nekstab_next_tpu_torch.ops.core import SEM
+from nekstab_next_tpu_torch.stepper import NavierStokes
+
+MESH = dict(nr=4, ntheta=8, order=6)
+TIGHT = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=400,
+             velocity_maxiter=200)
+
+
+def port_stepper(jcase, jns, dtype):
+    """The port's stepper on the JAX case's factors and config."""
+    sem = sem_from_arrays(sem_arrays(jcase.sem), dtype=dtype)
+    return NavierStokes(
+        sem, viscosity=jns.nu, dt=jns.dt,
+        u_bc=torch.as_tensor(np.array(jcase.u_bc)),
+        sponge_ref=torch.as_tensor(np.array(jcase.sponge_ref)),
+        solver=SolverConfig(**dataclasses.asdict(jns.solver)),
+    )
+
+
+def rel(ref, got) -> float:
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+@pytest.mark.parametrize("precond,warm,fdm", [
+    ("block", True, True), ("fdm", True, True), ("block", False, True),
+    ("block", True, False),  # Jacobi velocity preconditioner
+])
+def test_advance_matches_jax_f64(precond, warm, fdm):
+    cfg = JaxSolverConfig(**TIGHT, pressure_precond=precond, warm_start=warm,
+                          fdm_precond=fdm)
+    jcase = JaxCylinderCase(**MESH, solver=cfg)
+    jns = jcase.make_ns()
+    ns = port_stepper(jcase, jns, torch.float64)
+    u0 = np.array(jcase.uniform_flow())
+    jst = jax.jit(lambda s: jns.advance(s, 3))(jns.make_state(jnp.asarray(u0)))
+    st = ns.advance(ns.make_state(torch.as_tensor(u0)), 3)
+    # both solve every inner system to 1e-12: the steps agree to f64
+    # roundoff amplified by three steps (measured ~5e-15)
+    assert rel(jst.u, st.u.numpy()) <= 1e-10
+    assert rel(jst.p, st.p.numpy()) <= 1e-10
+    assert st.step == 3 and st.time == pytest.approx(3 * jns.dt)
+    if warm:
+        assert rel(jst.dp, st.dp.numpy()) <= 1e-10
+    else:
+        assert st.dp is None
+
+
+def test_advance_fused_plain_matches_jax_f32():
+    # fused_solves: the port's plain kernel versions against the JAX Pallas
+    # kernels in interpret mode, at test_fused_cg.py's stepper settings
+    cfg = JaxSolverConfig(pressure_tol=1e-6, velocity_tol=1e-7, pressure_maxiter=80,
+                          velocity_maxiter=40, pressure_precond="block",
+                          fused_solves=True)
+    jcase = JaxCylinderCase(**MESH, solver=cfg, dtype=jnp.float32)
+    jns = jcase.make_ns()
+    ns = port_stepper(jcase, jns, torch.float32)
+    u0 = np.array(jcase.uniform_flow())
+    jst = jax.jit(lambda s: jns.advance(s, 3))(jns.make_state(jnp.asarray(u0)))
+    st = ns.advance(ns.make_state(torch.as_tensor(u0)), 3)
+    # f32 with near-converged inner solves (measured ~2e-6)
+    assert rel(jst.u, st.u.numpy()) < 1e-4
+    assert ns.fused_v.launches == 0 and ns.fused_p.launches == 0
+
+
+def test_cylinder_case_matches_jax():
+    jcase = JaxCylinderCase(**MESH)
+    case = CylinderCase(**MESH)
+    assert case.dt == jcase.dt
+    np.testing.assert_array_equal(case.u_bc.numpy(), np.asarray(jcase.u_bc))
+    np.testing.assert_array_equal(case.uniform_flow().numpy(),
+                                  np.asarray(jcase.uniform_flow()))
+    np.testing.assert_array_equal(case.sponge_ref.numpy(), np.asarray(jcase.sponge_ref))
+    np.testing.assert_array_equal(case.sem.bms.numpy(), np.asarray(jcase.sem.bms))
+
+
+def test_propagator_is_advance():
+    case = CylinderCase(**MESH, solver=SolverConfig(**TIGHT, pressure_precond="block"))
+    ns = case.make_ns()
+    u0 = case.uniform_flow()
+    st = ns.make_state(u0)
+    assert st.ulag.shape == (2,) + tuple(u0.shape) and st.p.shape == ns.p_shape
+    np.testing.assert_array_equal(ns.propagator(u0, 2).numpy(),
+                                  ns.advance(st, 2).u.numpy())
+
+
+# every option the port does not implement raises where it is read
+UNSUPPORTED = {
+    "mixed_precision": dict(kw=dict(mixed_precision=True)),
+    "u_bc_fn": dict(kw=dict(u_bc_fn=lambda t: 0.0)),
+    "scalars": dict(kw=dict(scalar_diff=(0.01,))),
+    "lanes_layout": dict(cfg=dict(lanes_layout=True)),
+    "pressure_direct": dict(cfg=dict(pressure_direct=True)),
+    "cg_fixed_iters": dict(cfg=dict(cg_fixed_iters=True)),
+    "finite_difference": dict(cfg=dict(finite_difference=True)),
+    "no_dealias": dict(cfg=dict(dealias=False)),
+    "fused_pressure_off": dict(cfg=dict(fused_solves=True, fused_pressure=False)),
+    "schwarz": dict(cfg=dict(pressure_precond="schwarz")),
+    "velocity_block": dict(cfg=dict(velocity_precond="block")),
+    "pressure_operator": dict(cfg=dict(pressure_operator="laplacian")),
+    "bdf_order": dict(cfg=dict(bdf_order=2)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
+def test_unsupported_option_raises(name):
+    spec = UNSUPPORTED[name]
+    sem = SEM(cylinder_mesh(nr=2, ntheta=4, order=4), dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        NavierStokes(sem, viscosity=0.01, dt=0.01,
+                     solver=SolverConfig(**spec.get("cfg", {})), **spec.get("kw", {}))
+
+
+def test_fused_solves_raise_outside_kernel_scope():
+    with pytest.raises(ValueError, match="float32"):  # f64 fields
+        CylinderCase(nr=2, ntheta=4, solver=SolverConfig(fused_solves=True)).make_ns()
+    with pytest.raises(ValueError, match="order"):  # n = 10: no 64-thread slot
+        CylinderCase(nr=2, ntheta=4, order=9, dtype=torch.float32,
+                     solver=SolverConfig(fused_solves=True)).make_ns()
