@@ -1,17 +1,31 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU (Hopper).
+"""Drive the PyTorch port's two paths once on one NVIDIA GPU (Hopper).
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``nekstab_next_tpu_torch/csrc`` (nvcc, sm_90a),
-checks each kernel against its plain PyTorch version at the flagship shapes,
-runs the flagship 50-step f32 tangent matvec (the quantity ``bench.py``
-times: 768-element Re=60 cylinder, order 6, caps 16/10) through the kernels,
-checks it against the plain versions and an f64 reference, runs 20
-nonlinear steps, and times everything with CUDA events.  Every phase is
-fatal on failure.  Imports nothing of JAX.
+Builds the CUDA kernels from ``nekstab_next_tpu_torch/csrc`` (one nvcc per
+source, sm_90a, all at once) and drives:
 
-Output: one line per result, then a ``{"kernels": [...]}`` JSON line, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+1. the flagship 2-D path: checks K1 and K2 (the whole-solve CG kernels)
+   against their plain PyTorch versions at the flagship shapes, runs the
+   flagship 50-step f32 tangent matvec (the quantity ``bench.py`` times:
+   768-element Re=60 cylinder, order 6, caps 16/10) through them, checks it
+   against the plain versions and an f64 reference, runs 20 nonlinear steps
+   and times everything with CUDA events;
+2. the 3-D mixed-precision path: checks K4 (the fused local Helmholtz
+   apply) against its plain version at the cylinder's shape and at both of
+   the cube's (the three-component velocity apply and the one-component
+   pressure apply), runs the 10-step mixed tangent matvec on the 1,472-element
+   order-6 cube through K4, checks it against K4's plain version and the
+   f64 'laplacian' matvec, runs 5 nonlinear mixed steps and times it.
+
+Each path is driven with every kernel's launch count set to 0 just before
+it and read just after.  Every phase is fatal on failure.  Imports nothing
+of JAX.
+
+Output: one line per result, then a ``{"kernels": [...]}`` JSON line (each
+kernel's launches on its path, max abs error against its plain version,
+time, plain time, and the least time the card could take, ``bound_ms``),
+the card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
 port's package beside this script.
 """
@@ -37,11 +51,28 @@ CAPS_TIGHT = dict(pressure_tol=1e-10, velocity_tol=1e-10, pressure_maxiter=2000,
 TPU_KERNEL = {  # the pallas_call each kernel replaces
     "fused_helmholtz_cg": "nekstab_next_tpu/ops/fused_cg.py:394",
     "fused_pressure_cg": "nekstab_next_tpu/ops/fused_cg.py:665",
+    "fused_helmholtz": "nekstab_next_tpu/ops/pallas_kernels.py:210",
 }
 SOURCE = {
     "fused_helmholtz_cg": "nekstab_next_tpu_torch/csrc/fused_helmholtz_cg.cu",
     "fused_pressure_cg": "nekstab_next_tpu_torch/csrc/fused_pressure_cg.cu",
+    "fused_helmholtz": "nekstab_next_tpu_torch/csrc/fused_helmholtz.cu",
 }
+# the 3-D path: examples/cube_transient_growth.py's cube with the element
+# lattice doubled (24 x 8 x 8, 1,472 elements after carving) at the
+# flagship's order 6, its tolerances, and a horizon cut to 10 steps
+CUBE = dict(reynolds=60.0, h=2.0, lx=12.0, ly=4.0, lz=4.0, cube_x=4.0, cube_z=2.0,
+            nx=24, ny=8, nz=8, order=6, delta=1.0, target_cfl=0.2)
+CUBE_TOL = dict(pressure_tol=1e-7, velocity_tol=1e-8, pressure_maxiter=300,
+                velocity_maxiter=120)
+CUBE_TIGHT = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=2000,
+                  velocity_maxiter=500)
+CUBE_NSTEPS = 10
+CUBE_REPS = 2
+# published H100 SXM peaks: device memory and float32 outside the tensor
+# cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -57,12 +88,80 @@ def rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def roofline(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k1_flops(E: int, n: int, C: int, iters: int) -> float:
+    """Operations of a K1 solve, per iteration and node and component as
+    counted from csrc/fused_helmholtz_cg.cu: the local Helmholtz apply
+    (8n + 10), the FDM preconditioner (8n + 12), two assemblies (8), three
+    dots (6) and three axpys (6)."""
+    return float(iters) * E * n * n * C * (16 * n + 38)
+
+
+def k2_flops(E: int, n: int, nc: int, iters: int) -> float:
+    """Operations of a K2 solve, per iteration and element as counted from
+    csrc/fused_pressure_cg.cu (m = n - 2): E = D M^-1 D^T with its Gauss <->
+    GLL transfers (16 n^3 + 4 n m (m + n) + 25 n^2), the element-block
+    inverse (2 m^4), the Q1 restriction and prolongation, dots and axpys
+    (28 m^2); plus the dense coarse solve (2 nc^2) once per iteration."""
+    m = n - 2
+    per_elem = 16 * n ** 3 + 4 * n * m * (m + n) + 25 * n * n + 2 * m ** 4 + 28 * m * m
+    return float(iters) * (E * per_elem + 2.0 * nc * nc)
+
+
+def k4_flops(E: int, n: int, dim: int, C: int) -> float:
+    """Operations of one K4 apply, per node and component: dim reference
+    derivatives and dim transposed ones of 2n each, the metric combination
+    (2-D 6, 3-D 15) and h1 K u + h2 bm u (4)."""
+    per_node = 8 * n + 10 if dim == 2 else 12 * n + 19
+    return float(E) * n ** dim * C * per_node
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def kernel_ms(fn, reps: int, cold: bool = False) -> float:
+    """Mean device milliseconds of one launch of fn(), which must launch
+    kernels without synchronising the host.  A GPU spin queued first keeps
+    the card busy while the host enqueues every launch, so no host time
+    falls between the CUDA events; with ``cold`` the 50 MB L2 cache is
+    flushed (a 128 MB write) before each launch, outside the events."""
+    import torch
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps if cold else 1)]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning, longer than the enqueue
+    if cold:
+        for start, end in ev:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+    else:
+        ev[0][0].record()
+        for _ in range(reps):
+            fn()
+        ev[0][1].record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -93,6 +192,18 @@ def plain_solves(ns):
         del fv.solve, fp.solve
 
 
+@contextlib.contextmanager
+def plain_k4(ns):
+    """Route the mixed stepper's local Helmholtz apply through K4's plain
+    version."""
+    k4 = ns.mixed.fused
+    k4.apply = k4.plain
+    try:
+        yield
+    finally:
+        del k4.apply
+
+
 def make_case(dtype, caps, fused: bool):
     import torch
     from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
@@ -120,7 +231,8 @@ def main() -> None:
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     lib = _cuda.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {lib.build_seconds:.1f} s) -> {lib.path.name}")
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, all sources at once, "
+        f"{lib.build_seconds:.1f} s) -> {', '.join(p.name for p in lib.paths)}")
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -228,19 +340,157 @@ def main() -> None:
             f"{ndof * NSTEPS / (ms / 1e3):.4e} dof-steps/s")
 
     solve_ms = {
-        "fused_helmholtz_cg": (cuda_ms(lambda: k1.solve(rhs_v, h1, h2), 20),
+        "fused_helmholtz_cg": (kernel_ms(lambda: k1.solve(rhs_v, h1, h2), 20),
                                cuda_ms(lambda: k1.plain(rhs_v, h1, h2), 20)),
-        "fused_pressure_cg": (cuda_ms(lambda: fp.solve(rhs_p), 20),
+        "fused_pressure_cg": (kernel_ms(lambda: fp.solve(rhs_p), 20),
                               cuda_ms(lambda: fp.plain(rhs_p), 20)),
     }
     for name, (ms_k, ms_p) in solve_ms.items():
         log(f"timing {tag} one {name} solve (flagship caps): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
 
+    # bounds of the two timed solves: inputs read once, the output written
+    # once, the iterations these inputs need (counted by the plain versions)
+    it1 = k1.plain(rhs_v, h1, h2, return_iters=True)[1]
+    it2 = fp.plain(rhs_p, return_iters=True)[1]
+    bounds = {
+        "fused_helmholtz_cg": roofline(
+            nbytes(rhs_v, rhs_v, *k1._dev.values()),
+            k1_flops(sem.nelem, sem.n, 2, it1)),
+        "fused_pressure_cg": roofline(
+            nbytes(rhs_p, rhs_p, *fp._dev.values()),
+            k2_flops(sem.nelem, sem.n, sem.pc_nc, it2)),
+    }
+    log(f"bounds: K1 {it1} iterations -> {bounds['fused_helmholtz_cg']}, "
+        f"K2 {it2} iterations -> {bounds['fused_pressure_cg']}")
+
+    # ==== the 3-D mixed-precision path (K4) ==============================
+    from nekstab_next_tpu_torch.cases.cube import CubeRoughnessCase
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.ops.fused_helmholtz import FusedHelmholtz
+    from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
+
+    # ---- 7, 8. K4 against its plain version at both paths' shapes -------
+    # (label, SEM, components or None for no component axis, (h1, h2)): the
+    # cube's solves apply K4 to the velocity (C = 3) and to the pressure
+    # (one component, h1 = 1, h2 = 0)
+    t0 = time.perf_counter()
+    cube = CubeRoughnessCase(**CUBE, solver=SolverConfig(**CUBE_TOL),
+                             device=torch.device("cuda", 0))
+    s3 = cube.sem
+    log(f"cube: {s3.nelem} elements, n={s3.n}, {cube.mesh.npoints * 3} velocity dof, "
+        f"{s3.pc_nc} coarse vertices, dt={cube.dt:.6g}, set-up {time.perf_counter() - t0:.1f} s")
+    k4_err, k4_in = [], {}
+    for label, ksem, C, hh in (
+            ("cylinder", sem, 2, (h1, h2)),
+            ("cube velocity", s3, 3, (cube.h / cube.reynolds, (11.0 / 6.0) / cube.dt)),
+            ("cube pressure", s3, None, (1.0, 0.0))):
+        k4 = FusedHelmholtz(ksem)
+        u = torch.as_tensor(rng.standard_normal(k4.node_shape + ((C,) if C else ())),
+                            dtype=torch.float32, device=dev)
+        got, ref = k4.apply(u, *hh), k4.plain(u, *hh)
+        torch.cuda.synchronize()
+        r4 = rel(got, ref)
+        k4_err.append(float((got - ref).abs().max()))
+        k4_in[label] = (k4, u, hh, C)
+        log(f"K4 fused_helmholtz vs plain at the {label} shape {tuple(u.shape)}, "
+            f"h1={hh[0]:.6g}, h2={hh[1]:.6g}: rel {r4:.3e} (bound 1e-5), launches {k4.launches}")
+        if k4.launches != 1:
+            fail(f"K4 at the {label} shape launched {k4.launches} times, expected 1")
+        if not (r4 < 1e-5):
+            fail(f"K4 disagrees with its plain version at the {label} shape: rel {r4:.3e}")
+    err["fused_helmholtz"] = max(k4_err)
+
+    # ---- 9. the cube's 10-step mixed tangent matvec through K4 -----------
+    nu3 = cube.h / cube.reynolds
+    nsm = NavierStokes(s3, viscosity=nu3, dt=cube.dt, u_bc=cube.u_bc,
+                       solver=cube.solver, mixed_precision=True)
+    base3 = cube.initial_flow()
+    op3 = LinearizedOperator(nsm, base3, nsteps=CUBE_NSTEPS)
+    q3 = s3.vmask * torch.as_tensor(rng.standard_normal(tuple(base3.shape)),
+                                    dtype=torch.float64, device=dev)
+    k4m = nsm.mixed.fused
+    calls = [0]
+    helm32 = nsm.mixed.helmholtz32
+
+    def counting_helmholtz32(u, a, b):
+        calls[0] += 1
+        return helm32(u, a, b)
+
+    nsm.mixed.helmholtz32 = counting_helmholtz32
+    fv.launches = fp.launches = k4m.launches = 0
+    t0 = time.perf_counter()
+    out3 = op3.matvec(q3)
+    torch.cuda.synchronize()
+    t_first3 = time.perf_counter() - t0
+    launches3 = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches,
+                 "fused_helmholtz": k4m.launches}
+    log(f"cube matvec mixed (K4): first call {t_first3:.2f} s, launches {launches3}, "
+        f"helmholtz32 calls {calls[0]}")
+    nsm.mixed.helmholtz32 = helm32
+    if tuple(out3.shape) != tuple(q3.shape) or out3.dtype != torch.float64:
+        fail(f"cube matvec output has shape {tuple(out3.shape)}, {out3.dtype}")
+    if not bool(torch.isfinite(out3).all()):
+        fail("cube matvec output is not finite")
+    if not (k4m.launches > 0 and k4m.launches == calls[0]):
+        fail(f"K4 launched {k4m.launches} times for {calls[0]} helmholtz32 calls")
+    if launches3["fused_helmholtz_cg"] or launches3["fused_pressure_cg"]:
+        fail(f"the cube path launched K1/K2: {launches3}")
+    launches["fused_helmholtz"] = k4m.launches
+    with plain_k4(nsm):
+        out3_p = op3.matvec(q3)
+    r3 = rel(out3, out3_p)
+    log(f"cube matvec K4 vs K4's plain version: rel {r3:.3e} (bound 1e-7)")
+    if not (r3 < 1e-7):
+        fail(f"cube matvec through K4 disagrees with the plain version: {r3:.3e}")
+    ns64_3 = NavierStokes(s3, viscosity=nu3, dt=cube.dt, u_bc=cube.u_bc,
+                          solver=SolverConfig(**CUBE_TIGHT, pressure_operator="laplacian"))
+    op64_3 = LinearizedOperator(ns64_3, base3, nsteps=CUBE_NSTEPS)
+    out3_64 = op64_3.matvec(q3)
+    drift3 = rel(out3, out3_64)
+    log(f"cube drift: mixed matvec (K4) vs f64 'laplacian' at 1e-12: rel {drift3:.3e} (bound 1e-7)")
+    if not (drift3 < 1e-7):
+        fail(f"cube mixed drift {drift3:.3e} against the f64 'laplacian' matvec")
+
+    # ---- 10. nonlinear mixed steps ---------------------------------------
+    st3 = nsm.advance(nsm.make_state(base3), 5)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(st3.u).all()) and bool(torch.isfinite(st3.p).all())):
+        fail("5 nonlinear mixed cube steps gave non-finite fields")
+    log(f"cube nonlinear: 5 mixed steps of ns.advance from initial_flow(): finite, "
+        f"|u|max {float(st3.u.abs().max()):.4f}")
+
+    # ---- 11. timing of the cube path and of K4 ---------------------------
+    ndof3 = cube.mesh.npoints * 3
+    rates3 = {"mixed, K4 kernel": cuda_ms(chained(op3, q3), CUBE_REPS)}
+    with plain_k4(nsm):
+        rates3["mixed, K4 plain version"] = cuda_ms(chained(op3, q3), CUBE_REPS)
+    ns64e = NavierStokes(s3, viscosity=nu3, dt=cube.dt, u_bc=cube.u_bc,
+                         solver=SolverConfig(**CUBE_TOL, pressure_operator="laplacian"))
+    rates3["f64 'laplacian', example tolerances"] = cuda_ms(
+        chained(LinearizedOperator(ns64e, base3, nsteps=CUBE_NSTEPS), q3), CUBE_REPS)
+    for name, ms in rates3.items():
+        log(f"timing {tag} cube matvec ({CUBE_NSTEPS} steps) {name}: {ms:.2f} ms/matvec, "
+            f"{ndof3 * CUBE_NSTEPS / (ms / 1e3):.4e} dof-steps/s")
+    k4_ms = {}
+    for label, (k4, u, hh, C) in k4_in.items():
+        ms_warm = kernel_ms(lambda: k4.apply(u, *hh), 200)
+        ms_cold = kernel_ms(lambda: k4.apply(u, *hh), 50, cold=True)
+        ms_plain = cuda_ms(lambda: k4.plain(u, *hh), 50)
+        b4 = roofline(nbytes(u, u, k4.bm, *k4.metrics, k4.D),
+                   k4_flops(k4.nelem, k4.n, k4.ndim, C or 1))
+        k4_ms[label] = (ms_cold, ms_plain, b4)
+        log(f"timing {tag} one K4 apply at the {label} shape: kernel {ms_cold:.4f} ms "
+            f"(L2 flushed; {ms_warm:.4f} ms back to back), plain {ms_plain:.4f} ms, "
+            f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']})")
+    bounds["fused_helmholtz"] = k4_ms["cube velocity"][2]
+    solve_ms["fused_helmholtz"] = k4_ms["cube velocity"][:2]
+
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": solve_ms[name][0], "plain_ms": solve_ms[name][1]}
-        for name in ("fused_helmholtz_cg", "fused_pressure_cg")
+         "ms": solve_ms[name][0], "plain_ms": solve_ms[name][1],
+         **bounds[name], "library_ms": None}
+        for name in ("fused_helmholtz_cg", "fused_pressure_cg", "fused_helmholtz")
     ]
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,3 +1,4 @@
+from .cube import CubeRoughnessCase
 from .cylinder import CylinderCase
 
-__all__ = ["CylinderCase"]
+__all__ = ["CubeRoughnessCase", "CylinderCase"]

@@ -39,8 +39,8 @@ class CylinderCase:
     target_cfl: float = 0.5
     solver: SolverConfig = SolverConfig()
     dtype: Optional[torch.dtype] = None  # None -> float64
-    device: Optional[object] = None  # None -> CPU
-    mixed_precision: bool = False  # not ported: make_ns raises
+    device: Optional[object] = None  # None -> the current CUDA device (raises without one)
+    mixed_precision: bool = False  # legacy mixed path ('laplacian' scheme); see NavierStokes
 
     def __post_init__(self):
         self.mesh = cylinder_mesh(

@@ -6,6 +6,10 @@ identical factors; :func:`sem_arrays` collects them from a JAX ``SEM``::
 
     sem = sem_from_arrays(sem_arrays(jax_sem), device="cuda")
 
+:func:`sem3_arrays` and :func:`sem3_from_arrays` do the same for a 3-D
+``SEM3``.  ``device`` defaults to the current CUDA device and raises without
+one: CPU callers pass ``device="cpu"``.
+
 This module imports no jax: ``np.asarray`` of a jax array needs none.
 """
 
@@ -17,8 +21,10 @@ import numpy as np
 import torch
 
 from .ops.core import FLOAT_KEYS, INT_KEYS, SEM
+from .ops.core3 import FLOAT_KEYS3, INT_KEYS3, SEM3
 
 SEM_ARRAY_KEYS = FLOAT_KEYS + INT_KEYS + ("pblock_inv",)
+SEM3_ARRAY_KEYS = FLOAT_KEYS3 + INT_KEYS3
 SEM_META_KEYS = ("nglobal", "has_pressure_dirichlet")
 
 
@@ -43,3 +49,24 @@ def sem_from_arrays(arrays: dict, device=None,
     a = {k: (v if k in SEM_META_KEYS or v is None else np.asarray(v))
          for k, v in arrays.items()}
     return SEM.from_arrays(a, dtype=dtype, device=device)
+
+
+def sem3_arrays(jax_sem3) -> dict:
+    """The factor arrays (numpy) and metadata of a JAX ``SEM3``, by
+    attribute name."""
+    arrays = {k: np.asarray(getattr(jax_sem3, k)) for k in SEM3_ARRAY_KEYS}
+    arrays.update({k: getattr(jax_sem3, k) for k in SEM_META_KEYS})
+    return arrays
+
+
+def sem3_from_arrays(arrays: dict, device=None,
+                     dtype: Optional[torch.dtype] = None) -> SEM3:
+    """The port's SEM3 from a dict of the JAX SEM3's factor arrays (names
+    as the JAX SEM3's attributes: :data:`SEM3_ARRAY_KEYS` plus
+    :data:`SEM_META_KEYS`).  Float factors take ``dtype`` (float64 when
+    None)."""
+    missing = [k for k in SEM3_ARRAY_KEYS + SEM_META_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"sem3_from_arrays: missing {missing}")
+    a = {k: (v if k in SEM_META_KEYS else np.asarray(v)) for k, v in arrays.items()}
+    return SEM3.from_arrays(a, dtype=dtype, device=device)

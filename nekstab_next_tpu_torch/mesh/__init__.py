@@ -1,6 +1,8 @@
 from .gll import diff_matrix, gauss_points_weights, gll_points_weights, lagrange_interp_matrix
 from .mesh import BoundaryCondition, Mesh2D, build_mesh
+from .box import box_mesh_2d
 from .cylinder import cylinder_mesh
+from .mesh3 import Mesh3D, box_mesh_3d, build_mesh_3d, face_node_indices
 
 __all__ = [
     "gll_points_weights",
@@ -10,5 +12,10 @@ __all__ = [
     "Mesh2D",
     "BoundaryCondition",
     "build_mesh",
+    "box_mesh_2d",
     "cylinder_mesh",
+    "Mesh3D",
+    "build_mesh_3d",
+    "box_mesh_3d",
+    "face_node_indices",
 ]

@@ -1,12 +1,15 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/``).
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper) into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build happens
-at first use, on the machine with the card, into
-``nekstab_next_tpu_torch/_build/`` (listed in ``.gitignore``); the library's
-file name carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
-import time: the CPU tests import every module without ``nvcc``.
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (Hopper) into a shared
+library of its own with a plain C interface, loaded with ``ctypes``; the
+compilers of all sources run at once, so a build takes as long as its
+slowest source whatever the number of kernels, and an edit to one source
+rebuilds only that one.  The build happens at first use, on
+the machine with the card, into ``nekstab_next_tpu_torch/_build/`` (listed in
+``.gitignore``); a library's file name carries a hash of its source, the
+shared headers and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  Nothing here runs at import time: the CPU
+tests import every module without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,7 +33,8 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argument types of the C entry points, in order
+# argument types of the C entry points, in order; ``nsk_<stem>`` is defined
+# by ``csrc/<stem>.cu``
 _SIGNATURES = {
     "nsk_fused_helmholtz_cg": (
         [_I] * 5 + [_F] * 3        # device, n, E, C, maxiter; tol, h1, h2
@@ -44,21 +48,35 @@ _SIGNATURES = {
         + [_P] * 12                # D, Jg, Kc, rx, ry, sx, sy, bm, binv, vmask, pinv, Acinv
         + [_P] * 6 + [_P]          # cid, vtx_off, vtx_idx, gid, gs_off, gs_idx; stream
     ),
+    "nsk_fused_helmholtz": (
+        [_I] * 5 + [_F] * 2        # device, dim, n, E, C; h1, h2
+        + [_P] * 2                 # u, out
+        + [_P] * 8 + [_P]          # D, g0..g5, bm; stream
+    ),
 }
 
 
 class KernelLibrary:
-    """The loaded shared library plus what its build reported."""
+    """The loaded shared libraries (one per source) plus what their build
+    reported; the C entry points are its attributes."""
 
-    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
-                 build_log: str):
-        self.lib = lib
-        self.path = path
-        self.build_seconds = build_seconds  # 0.0 when loaded from a prior build
+    def __init__(self, libs: Dict[str, ctypes.CDLL], paths: List[Path],
+                 build_seconds: float, build_log: str):
+        self.paths = paths
+        self.build_seconds = build_seconds  # 0.0 when every library was built before
         self.build_log = build_log
+        self._fns: Dict[str, object] = {}
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(libs[name[len("nsk_"):]], name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            self._fns[name] = fn
 
     def __getattr__(self, name):
-        return getattr(self.lib, name)
+        try:
+            return self.__dict__["_fns"][name]
+        except KeyError:
+            raise AttributeError(name) from None
 
 
 _lock = threading.Lock()
@@ -84,38 +102,46 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _library_path(src: Path, headers: List[Path]) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in headers + [src]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
 def library() -> KernelLibrary:
-    """Build (if needed) and load the kernels' library; cached per process."""
+    """Build (if needed) and load the kernels' libraries; cached per process."""
     global _loaded
     with _lock:
         if _loaded is not None:
             return _loaded
         cu, cuh = _sources()
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for f in cu + cuh:
-            h.update(f.name.encode())
-            h.update(f.read_bytes())
-        path = BUILD_DIR / f"libnekstab_cuda_{h.hexdigest()[:16]}.so"
-        log_path = path.with_suffix(".log")
-        seconds = 0.0
-        if not path.exists():
+        paths = [_library_path(f, cuh) for f in cu]
+        jobs = []  # (process, tmp, path, source): every nvcc started at once
+        t0 = time.perf_counter()
+        for src, path in zip(cu, paths):
+            if path.exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-                )
-            log_path.write_text(res.stdout + res.stderr)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((proc, tmp, path, src))
+        failed = []
+        for proc, tmp, path, src in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+                continue
+            path.with_suffix(".log").write_text(out)
             os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        log = log_path.read_text() if log_path.exists() else ""
-        _loaded = KernelLibrary(lib, path, seconds, log)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        seconds = time.perf_counter() - t0 if jobs else 0.0
+        libs = {src.stem: ctypes.CDLL(str(p)) for src, p in zip(cu, paths)}
+        log = "".join(p.with_suffix(".log").read_text()
+                      for p in paths if p.with_suffix(".log").exists())
+        _loaded = KernelLibrary(libs, paths, seconds, log)
         return _loaded

@@ -36,9 +36,12 @@ def pcg(
     tol: float = 1e-8,
     maxiter: int = 500,
     dot: Optional[Callable] = None,
-) -> torch.Tensor:
+    return_iters: bool = False,
+):
     """Preconditioned CG on an SPD operator, with early exit on
-    ||r|| <= tol * ||b|| and at most ``maxiter`` iterations.
+    ||r|| <= tol * ||b|| and at most ``maxiter`` iterations.  Returns the
+    solution, or ``(x, k)`` with ``k`` the number of live iterations when
+    ``return_iters``.
 
     Each iteration is live-masked: once the residual test fails, alpha and
     beta are zero and the iterate freezes.  The mask is essential, not an
@@ -61,11 +64,13 @@ def pcg(
     z = precond(r)
     rz = dot(r, z)
     p = z
+    k = torch.zeros((), dtype=torch.int64, device=b.device)
 
     for it in range(maxiter):
         live = dot(r, r) > atol2
         if it % _CHECK_EVERY == 0 and not bool(live):
             break
+        k = k + live
         Ap = operator(p)
         alpha = torch.where(live, _sdiv(rz, dot(p, Ap)), torch.zeros_like(rz))
         x = x + alpha * p
@@ -75,7 +80,7 @@ def pcg(
         beta = torch.where(live, _sdiv(rz_new, rz), torch.zeros_like(rz))
         p = torch.where(live, z + beta * p, p)
         rz = torch.where(live, rz_new, rz)
-    return x
+    return (x, int(k)) if return_iters else x
 
 
 def cg_solve(

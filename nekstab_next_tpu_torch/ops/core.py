@@ -8,7 +8,8 @@ operators and the dealiased convection.
 Differences from the JAX ``SEM``:
 
 * ``SEM`` is an ``nn.Module``; every factor is a registered buffer on the
-  device given at construction.  Single device, 2-D only.
+  device given at construction (the current CUDA device by default).
+  Single device, 2-D only; the 3-D ``SEM3`` is in ``ops/core3.py``.
 * ``dssum`` is a gather over the node->copies table (:func:`gather_table`):
   each local node sums every copy of its global node in table order.  No
   scatter-add, whose CUDA atomics would make sums nondeterministic; copies
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import DEFAULT_DTYPE
+from .. import DEFAULT_DTYPE, resolve_device
 from ..mesh.gll import (
     diff_matrix,
     gauss_points_weights,
@@ -63,6 +64,17 @@ FLOAT_KEYS = (
     "Jp", "Jpg", "bp", "fdm_S", "fdm_lam", "fdm_len", "pc_Jc", "pc_Acinv",
 )
 INT_KEYS = ("gid", "pc_cid")
+
+
+def stiffness2(D, g11, g12, g22, u: torch.Tensor) -> torch.Tensor:
+    """Local weak Laplacian of (nelem, n, n) fields from the factors
+    (``SEM.stiffness_local``; the plain version of the fused apply calls
+    it with float32 copies)."""
+    ur = torch.einsum("ai,eij->eaj", D, u)
+    us = torch.einsum("bj,eij->eib", D, u)
+    wr = g11 * ur + g12 * us
+    ws = g12 * ur + g22 * us
+    return torch.einsum("ai,eaj->eij", D, wr) + torch.einsum("bj,eib->eij", D, ws)
 
 
 def sem_factors(mesh: Mesh2D) -> dict:
@@ -120,30 +132,31 @@ def sem_factors(mesh: Mesh2D) -> dict:
     return a
 
 
-class SEM(nn.Module):
-    """Spectral-element operator context for one 2-D mesh on one device.
+class SEMBase(nn.Module):
+    """What :class:`SEM` (2-D) and ``SEM3`` (3-D, ops/core3.py) share:
+    construction from a mesh or from factor arrays onto one device, the
+    gather tables, the direct-stiffness sums, the Helmholtz apply and the
+    mass-weighted reductions.  A subclass sets ``ndim``, ``float_keys`` (the
+    float factors it installs) and ``_factors`` (mesh -> factor arrays)."""
 
-    ``SEM(mesh, dtype=None, device=None)`` builds the factors from the mesh
-    (float64 unless ``dtype`` is given); :meth:`from_arrays` builds them from
-    precomputed numpy arrays (``interop.sem_from_arrays``).  ``axis_name``
-    (the JAX SEM's sharded element axis) raises: the port is single-device."""
+    ndim: int
+    float_keys: Tuple[str, ...]
 
-    ndim = 2
-
-    def __init__(self, mesh: Mesh2D, dtype: Optional[torch.dtype] = None,
+    def __init__(self, mesh, dtype: Optional[torch.dtype] = None,
                  device=None, axis_name: Optional[str] = None):
+        name = type(self).__name__
         if axis_name is not None:
             raise NotImplementedError(
-                "sharding (SEM axis_name) is not ported: the port's SEM is "
-                "single-device"
+                f"sharding ({name} axis_name) is not ported: the port's {name} "
+                "is single-device"
             )
         super().__init__()
         self.mesh = mesh
-        self._install(sem_factors(mesh), dtype, device)
+        self._install(self._factors(mesh), dtype, device)
 
     @classmethod
     def from_arrays(cls, arrays: dict, dtype: Optional[torch.dtype] = None,
-                    device=None) -> "SEM":
+                    device=None):
         obj = cls.__new__(cls)
         nn.Module.__init__(obj)
         obj.mesh = None
@@ -152,28 +165,29 @@ class SEM(nn.Module):
 
     def _install(self, a: dict, dtype, device) -> None:
         dtype = DEFAULT_DTYPE if dtype is None else dtype
-        device = torch.device("cpu") if device is None else torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = resolve_device(device)
         self.dtype = dtype
         self.device = device
         D = np.asarray(a["D"])
         self.n = n = int(D.shape[0])
         self.npr = n - 2
         bm = np.asarray(a["bm"])
-        if bm.ndim != 3:
-            raise NotImplementedError("the port's SEM is 2-D only")
+        if bm.ndim != self.ndim + 1:
+            raise NotImplementedError(
+                f"{type(self).__name__} takes {self.ndim}-D factors, got bm of "
+                f"shape {bm.shape}: 2-D factors build an SEM, 3-D an SEM3"
+            )
         self.nelem = int(bm.shape[0])
         self.nglobal = int(a["nglobal"])
         self.has_pressure_dirichlet = bool(a["has_pressure_dirichlet"])
         self.pc_nc = int(np.asarray(a["pc_Acinv"]).shape[0])
 
-        for k in FLOAT_KEYS:
+        for k in self.float_keys:
             self.register_buffer(
                 k, torch.tensor(np.asarray(a[k]), dtype=dtype, device=device)
             )
         gid = np.asarray(a["gid"]).reshape(-1).astype(np.int64)
-        cid = np.asarray(a["pc_cid"]).reshape(self.nelem, 4).astype(np.int64)
+        cid = np.asarray(a["pc_cid"]).reshape(self.nelem, 2 ** self.ndim).astype(np.int64)
         self.gid_np, self.pc_cid_np = gid, cid
         self.register_buffer("gid", torch.as_tensor(gid, device=device))
         self.register_buffer("pc_cid", torch.as_tensor(cid, device=device))
@@ -186,27 +200,21 @@ class SEM(nn.Module):
         # Q1 coarse: every vertex's padded list of (element, corner) slots
         vt = gather_table(cid.reshape(-1), self.pc_nc)
         self.register_buffer("_vtx_table", torch.as_tensor(vt, device=device))
-        pbi = a.get("pblock_inv")
-        self.register_buffer(
-            "pblock_inv",
-            None if pbi is None
-            else torch.tensor(np.asarray(pbi), dtype=dtype, device=device),
-        )
 
     # ------------------------------------------------------------------
     # gather-scatter
     # ------------------------------------------------------------------
     def dssum(self, u: torch.Tensor) -> torch.Tensor:
         """Direct-stiffness sum over shared nodes; trailing component axes
-        allowed: (nelem, n, n, ...)."""
-        flat = u.reshape((self.gid.shape[0],) + tuple(u.shape[3:]))
+        allowed: (nelem, n, .., n, ...)."""
+        flat = u.reshape((self.gid.shape[0],) + tuple(u.shape[self.ndim + 1:]))
         ext = torch.cat([flat, flat.new_zeros((1,) + tuple(flat.shape[1:]))])
         return ext[self._gs_local].sum(dim=1).reshape(u.shape)
 
-    @staticmethod
-    def _bc(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """Broadcast a (nelem,n,n) weight against trailing component axes."""
-        return w.reshape(tuple(w.shape) + (1,) * (u.dim() - 3))
+    def _bc(self, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Broadcast a (nelem, n, .., n) weight against trailing component
+        axes."""
+        return w.reshape(tuple(w.shape) + (1,) * (u.dim() - self.ndim - 1))
 
     def dsavg(self, u: torch.Tensor) -> torch.Tensor:
         """Multiplicity-weighted average at shared nodes (Nek ``dsavg``)."""
@@ -215,6 +223,71 @@ class SEM(nn.Module):
     def dsavg_mass(self, u: torch.Tensor) -> torch.Tensor:
         """Mass-weighted average at shared nodes: B^-1_assembled dssum(B u)."""
         return self._bc(self.binv_assembled, u) * self.dssum(self._bc(self.bm, u) * u)
+
+    def gradv(self, u: torch.Tensor) -> torch.Tensor:
+        """Physical gradient as one (nelem, n, .., n, ndim) field."""
+        return torch.stack(self.grad(u), dim=-1)
+
+    def helmholtz_local(self, u: torch.Tensor, h1, h2) -> torch.Tensor:
+        """Local weak Helmholtz: h1 * K u + h2 * B u  (Nek ``axhelm``)."""
+        return h1 * self.stiffness_local(u) + h2 * self.bm * u
+
+    # ------------------------------------------------------------------
+    # inner products / norms
+    # ------------------------------------------------------------------
+    def inner(self, u: torch.Tensor, v: torch.Tensor, masked: bool = True) -> torch.Tensor:
+        """Mass-weighted global inner product <u, v>_B (``masked`` uses the
+        sponge-masked weight bm1s)."""
+        w = self.bms if masked else self.bm
+        return torch.sum(u * v * self._bc(w, u))
+
+    def norm(self, u: torch.Tensor, masked: bool = True) -> torch.Tensor:
+        return torch.sqrt(self.inner(u, u, masked=masked))
+
+    def glsum(self, u: torch.Tensor) -> torch.Tensor:
+        return torch.sum(u)
+
+    def volume(self) -> torch.Tensor:
+        return self.glsum(self.bm)
+
+    def mean(self, u: torch.Tensor) -> torch.Tensor:
+        """Mass-weighted mean of a scalar field."""
+        return torch.sum(u * self.bm) / self.volume()
+
+    # ------------------------------------------------------------------
+    # sponge (reference core/forcing.f90:82-252)
+    # ------------------------------------------------------------------
+    def set_sponge(self, strength_field) -> None:
+        """Install a sponge strength field lambda(x) >= 0; zeroes the
+        inner-product weight bm1s where the sponge acts."""
+        lam = torch.as_tensor(np.asarray(strength_field), dtype=self.dtype,
+                              device=self.device)
+        self.sponge = lam
+        self.bms = torch.where(lam > 0.0, torch.zeros_like(self.bm), self.bm)
+
+
+class SEM(SEMBase):
+    """Spectral-element operator context for one 2-D mesh on one device.
+
+    ``SEM(mesh, dtype=None, device=None)`` builds the factors from the mesh
+    (float64 unless ``dtype`` is given) on ``device`` (the current CUDA
+    device when None; raises without one, see :func:`resolve_device`);
+    :meth:`from_arrays` builds them from precomputed numpy arrays
+    (``interop.sem_from_arrays``).  ``axis_name`` (the JAX SEM's sharded
+    element axis) raises: the port is single-device."""
+
+    ndim = 2
+    float_keys = FLOAT_KEYS
+    _factors = staticmethod(sem_factors)
+
+    def _install(self, a: dict, dtype, device) -> None:
+        super()._install(a, dtype, device)
+        pbi = a.get("pblock_inv")
+        self.register_buffer(
+            "pblock_inv",
+            None if pbi is None
+            else torch.tensor(np.asarray(pbi), dtype=self.dtype, device=self.device),
+        )
 
     # ------------------------------------------------------------------
     # derivatives
@@ -249,9 +322,7 @@ class SEM(nn.Module):
     # ------------------------------------------------------------------
     def stiffness_local(self, u: torch.Tensor) -> torch.Tensor:
         """Local weak Laplacian K u (integral of grad(phi).grad(u))."""
-        ur, us = self.grad_ref(u)
-        return self.grad_ref_t(self.g11 * ur + self.g12 * us,
-                               self.g12 * ur + self.g22 * us)
+        return stiffness2(self.D, self.g11, self.g12, self.g22, u)
 
     def stiffness_diag(self) -> torch.Tensor:
         """Diagonal of the local stiffness (for Jacobi preconditioning)."""
@@ -261,10 +332,6 @@ class SEM(nn.Module):
         )
         dd = torch.diagonal(self.D)
         return d + 2.0 * self.g12 * dd[:, None] * dd[None, :]
-
-    def helmholtz_local(self, u: torch.Tensor, h1, h2) -> torch.Tensor:
-        """Local weak Helmholtz: h1 * K u + h2 * B u  (Nek ``axhelm``)."""
-        return h1 * self.stiffness_local(u) + h2 * self.bm * u
 
     def fdm_inverse(self, h1, h2, rel: float = 1e-8) -> torch.Tensor:
         """(nelem, n, n) inverse eigen-denominator of the FDM box operator.
@@ -365,26 +432,3 @@ class SEM(nn.Module):
 
     def convect(self, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return self.convect_weak(c[..., 0], c[..., 1], u)
-
-    # ------------------------------------------------------------------
-    # inner products / norms
-    # ------------------------------------------------------------------
-    def inner(self, u: torch.Tensor, v: torch.Tensor, masked: bool = True) -> torch.Tensor:
-        """Mass-weighted global inner product <u, v>_B (``masked`` uses the
-        sponge-masked weight bm1s)."""
-        w = self.bms if masked else self.bm
-        return torch.sum(u * v * self._bc(w, u))
-
-    def norm(self, u: torch.Tensor, masked: bool = True) -> torch.Tensor:
-        return torch.sqrt(self.inner(u, u, masked=masked))
-
-    # ------------------------------------------------------------------
-    # sponge (reference core/forcing.f90:82-252)
-    # ------------------------------------------------------------------
-    def set_sponge(self, strength_field) -> None:
-        """Install a sponge strength field lambda(x) >= 0; zeroes the
-        inner-product weight bm1s where the sponge acts."""
-        lam = torch.as_tensor(np.asarray(strength_field), dtype=self.dtype,
-                              device=self.device)
-        self.sponge = lam
-        self.bms = torch.where(lam > 0.0, torch.zeros_like(self.bm), self.bm)

@@ -33,7 +33,9 @@ def elliptic_solve(
     tol: float,
     maxiter: int,
     diag_local: Optional[torch.Tensor] = None,
+    project_mean: bool = False,
     fdm: Optional[tuple] = None,
+    coarse: bool = False,
     vblocks=None,
     fused_solve: Optional[Callable] = None,
 ) -> torch.Tensor:
@@ -43,7 +45,9 @@ def elliptic_solve(
     ``rhs_local``  : unassembled local weak RHS (will be P-projected)
     ``mask``       : 1 = free dof, 0 = Dirichlet (may carry component axes)
     ``diag_local`` : local diagonal of ``local_op`` (Jacobi preconditioner)
+    ``project_mean``: remove the constant nullspace (pure-Neumann Poisson)
     ``fdm``        : (h1, h2) — FDM block preconditioner instead of Jacobi
+    ``coarse``     : with ``fdm``, add the Q1 vertex coarse correction
     ``fused_solve``: the whole subspace CG as one call (ops/fused_cg.py)
     """
     if vblocks is not None:
@@ -66,7 +70,10 @@ def elliptic_solve(
         h1, h2 = fdm
 
         def M_sub(r):
-            return P(sem.fdm_apply(r, h1, h2))
+            z = sem.fdm_apply(r, h1, h2)
+            if coarse:
+                z = z + sem.coarse_apply_pressure(r)
+            return P(z)
 
     elif diag_local is not None:
         dinv = 1.0 / sem.dssum(diag_local)
@@ -79,7 +86,15 @@ def elliptic_solve(
     else:
         M_sub = None
 
+    project = None
+    if project_mean:
+        ones = torch.ones_like(rhs)
+        csq = dot(ones, ones)
+
+        def project(q):
+            return q - (dot(q, ones) / csq) * ones
+
     return cg_solve(
-        A, rhs, tol=tol, maxiter=maxiter, dot=dot,
+        A, rhs, tol=tol, maxiter=maxiter, dot=dot, project=project,
         inner_op=(A_sub, P, M_sub), fused_solve=fused_solve,
     )

@@ -111,8 +111,9 @@ class FusedHelmholtzCG(_FusedBase):
         sem, m = self.sem, self.mask
         return m * (sem.inv_mult[..., None] * sem.dssum(m * y))
 
-    def plain(self, rhs: torch.Tensor, h1, h2) -> torch.Tensor:
-        """The plain PyTorch version of the kernel (any device)."""
+    def plain(self, rhs: torch.Tensor, h1, h2, return_iters: bool = False):
+        """The plain PyTorch version of the kernel (any device); with
+        ``return_iters`` also the number of CG iterations it took."""
         sem = self.sem
         squeeze = rhs.dim() == 3
         b = rhs[..., None] if squeeze else rhs
@@ -122,11 +123,12 @@ class FusedHelmholtzCG(_FusedBase):
                 [sem.helmholtz_local(y[..., c], h1, h2) for c in range(self.C)], dim=-1
             )
 
-        x = pcg(lambda y: self._P(helm(y)), b,
-                precond=lambda r: self._P(sem.fdm_apply(r, h1, h2, rel=1e-6)),
-                tol=self.tol, maxiter=self.maxiter,
-                dot=lambda a, c: torch.sum(a * c))
-        return x[..., 0] if squeeze else x
+        x, k = pcg(lambda y: self._P(helm(y)), b,
+                   precond=lambda r: self._P(sem.fdm_apply(r, h1, h2, rel=1e-6)),
+                   tol=self.tol, maxiter=self.maxiter,
+                   dot=lambda a, c: torch.sum(a * c), return_iters=True)
+        x = x[..., 0] if squeeze else x
+        return (x, k) if return_iters else x
 
     def solve(self, rhs: torch.Tensor, h1, h2) -> torch.Tensor:
         """Solve A x = rhs for rhs in range(P); rhs (E, n, n[, C])."""
@@ -195,13 +197,15 @@ class FusedPressureCG(_FusedBase):
     def _project(self, q: torch.Tensor) -> torch.Tensor:
         return q - torch.sum(q) / q.numel()
 
-    def plain(self, rhs: torch.Tensor) -> torch.Tensor:
-        """The plain PyTorch version of the kernel (any device)."""
+    def plain(self, rhs: torch.Tensor, return_iters: bool = False):
+        """The plain PyTorch version of the kernel (any device); with
+        ``return_iters`` also the number of CG iterations it took."""
         b = self._project(rhs) if self.project_mean else rhs
-        x = pcg(self._E_op, b, precond=self.sem.pressure_precond_block,
-                tol=self.tol, maxiter=self.maxiter,
-                dot=lambda a, c: torch.sum(a * c))
-        return self._project(x) if self.project_mean else x
+        x, k = pcg(self._E_op, b, precond=self.sem.pressure_precond_block,
+                   tol=self.tol, maxiter=self.maxiter,
+                   dot=lambda a, c: torch.sum(a * c), return_iters=True)
+        x = self._project(x) if self.project_mean else x
+        return (x, k) if return_iters else x
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve E q = rhs; rhs (E, npr, npr)."""

@@ -12,9 +12,12 @@ explicit term linearized about the base,
 
     dE = -(C(base) du + C(du) base) - B lam du,
 
-and the lift set to zero — exact, with no autograd on the hot path, and
-exactly one velocity and one pressure solve per tangent step.  Stage
-k = min(step, 2) uses its own BDF/EXT coefficients, as in the JAX ramp.
+and the lift set to zero (in both pressure schemes, the ``+ u_bc`` of the
+'laplacian' projection included) — exact, with no autograd on the hot path,
+and exactly one velocity and one pressure solve per tangent step; in the
+mixed-precision step each is the same refined solve on the tangent
+right-hand side.  Stage k = min(step, 2) uses its own BDF/EXT coefficients,
+as in the JAX ramp.  2-D and 3-D: the component count comes from ``q``.
 
 The adjoint ``rmatvec`` comes with the Krylov layer and raises here.
 """
@@ -56,9 +59,10 @@ class LinearizedOperator:
         self.warm = ns.solver.warm_start
 
     def _tangent0(self, q: torch.Tensor) -> tuple:
-        """Zero-history tangent field tuple seeded with q."""
+        """Zero-history tangent field tuple seeded with q (its last axis
+        holds the components)."""
         s = self.sem
-        zp = torch.zeros(s.p_shape, dtype=s.dtype, device=s.device)
+        zp = torch.zeros(self.ns.p_shape, dtype=s.dtype, device=s.device)
         zl = torch.zeros((2,) + tuple(q.shape), dtype=s.dtype, device=s.device)
         df = (q.to(s.dtype), zp, zl, zl.clone())
         if self.warm:

@@ -1,17 +1,25 @@
-"""Incompressible Navier-Stokes time-stepper, 2-D PnPn-2 (port of
-``nekstab_next_tpu/stepper/navier_stokes.py``).
+"""Incompressible Navier-Stokes time-stepper (port of
+``nekstab_next_tpu/stepper/navier_stokes.py``), 2-D and 3-D.
 
-Scheme: BDFk/EXTk (k ramps 1->3) with incremental pressure correction on the
-discontinuous P_{N-2} Gauss pressure space:
+Scheme: BDFk/EXTk (k ramps 1->3) with incremental pressure correction:
 
 1. explicit terms  E^n = -C(u^n)u^n + B f^n  (dealiased weak convection,
    sponge + user forcing), extrapolated with EXTk;
 2. velocity Helmholtz solve  (g0/dt B + nu K) u* = rhs  with Dirichlet lift
    and a residual-correction warm start from u^n;
-3. pressure-increment solve  E dp = -(g0/dt) D u*,  E = D M^-1 D^T, warm
-   started from the previous increment;
-4. projection  u <- u* + (dt/g0) M^-1 D^T dp  (discretely divergence-free),
-   p <- p + dp.
+3. pressure increment, one of two schemes (``SolverConfig.pressure_operator``):
+   ``'pnpn2'`` (2-D): E dp = -(g0/dt) D u* on the discontinuous P_{N-2}
+   Gauss space, E = D M^-1 D^T, then u <- u* + (dt/g0) M^-1 D^T dp
+   (discretely divergence-free);
+   ``'laplacian'``: K dp = -(g0/dt) B div(u*) on the velocity GLL grid
+   (an approximate projection, safe on affine meshes), then
+   u <- u* - (dt/g0) grad(dp), mass-averaged back onto the C0 space with
+   the Dirichlet values re-imposed;
+4. p <- p + dp.
+
+``mixed_precision=True`` keeps the f64 state and runs both solves as
+float32 inner CG with f64 iterative refinement (``ops/mixed.py``, with the
+fused local Helmholtz kernel K4), on the ``'laplacian'`` scheme.
 
 The tangent step (``stepper/linearized.py``) is the same :meth:`_core` run
 with the explicit term linearized about a frozen base and the Dirichlet lift
@@ -29,8 +37,8 @@ import torch
 
 from ..config import SolverConfig
 from ..ops.cg import cg_solve
-from ..ops.core import SEM
 from ..ops.elliptic import elliptic_solve
+from ..ops.mixed import MixedPrecision, elliptic_solve_mixed
 from .state import FlowState, initial_state
 
 # BDFk / EXTk coefficients, index k-1 (padded to length 3)
@@ -46,11 +54,43 @@ _EXT = {
 }
 
 
-def _check_supported(sem: SEM, solver: SolverConfig, mixed_precision: bool,
-                     u_bc_fn, scalar_diff) -> None:
+def _scheme(sem, solver: SolverConfig, mixed_precision: bool) -> str:
+    """The pressure scheme the JAX constructor picks, or raise where the
+    port does not implement it.  ``mixed_precision`` takes the legacy mixed
+    path, on ``'laplacian'``, wherever the JAX package does (3-D, or
+    without ``fused_solves``).  Every 2-D ``fused_solves`` + ``'pnpn2'``
+    combination raises: JAX takes its fused-IR path there when the mesh
+    shift-decomposes and the legacy path otherwise, and the port builds no
+    shift decomposition to tell the two apart."""
+    if solver.pressure_operator not in ("pnpn2", "laplacian", "consistent"):
+        raise ValueError(f"unknown pressure_operator {solver.pressure_operator!r}")
+    if mixed_precision:
+        if (sem.ndim == 2 and solver.fused_solves
+                and solver.pressure_operator == "pnpn2"):
+            raise NotImplementedError(
+                "not ported: mixed_precision with fused_solves on a 2-D "
+                "'pnpn2' step, on any mesh; JAX takes its fused-IR path there "
+                "(ROADMAP item 8) when the mesh shift-decomposes"
+            )
+        return "laplacian"
+    if solver.pressure_operator == "consistent":
+        raise NotImplementedError(
+            "not ported: SolverConfig.pressure_operator='consistent'")
+    if sem.ndim == 3 and solver.pressure_operator == "pnpn2":
+        raise NotImplementedError(
+            "not ported: the 3-D 'pnpn2' step (ROADMAP item 15); 3-D runs "
+            "pressure_operator='laplacian' or mixed_precision=True"
+        )
+    if solver.fused_solves and (sem.ndim == 3 or solver.pressure_operator != "pnpn2"):
+        raise NotImplementedError(
+            "not ported: fused_solves outside the 2-D 'pnpn2' step"
+        )
+    return solver.pressure_operator
+
+
+def _check_supported(solver: SolverConfig, u_bc_fn, scalar_diff) -> None:
     """Raise for every option the port does not implement."""
     unsupported = {
-        "mixed_precision": mixed_precision,
         "u_bc_fn (time-dependent Dirichlet data)": u_bc_fn is not None,
         "scalars (scalar_diff)": bool(scalar_diff),
         "SolverConfig.lanes_layout": solver.lanes_layout,
@@ -61,8 +101,6 @@ def _check_supported(sem: SEM, solver: SolverConfig, mixed_precision: bool,
         "SolverConfig.fused_pressure=False": solver.fused_solves and not solver.fused_pressure,
         "SolverConfig.pressure_precond='schwarz'": solver.pressure_precond == "schwarz",
         "SolverConfig.velocity_precond='block'": solver.velocity_precond == "block",
-        f"SolverConfig.pressure_operator={solver.pressure_operator!r}":
-            solver.pressure_operator != "pnpn2",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -80,20 +118,31 @@ class NavierStokes:
 
     Parameters
     ----------
-    sem : SEM operator context
+    sem : SEM (2-D) or SEM3 (3-D) operator context; the velocity has
+          ``sem.ndim`` components
     viscosity : kinematic viscosity (1/Re)
     dt : time step (constant)
-    u_bc : (nelem, n, n, 2) Dirichlet values (zero except at Dirichlet nodes)
-    forcing : optional ``f(u, t) -> (nelem,n,n,2)`` pointwise acceleration
+    u_bc : (nelem, n, .., n, ndim) Dirichlet values (zero except at
+           Dirichlet nodes)
+    forcing : optional ``f(u, t) -> (nelem, n, .., n, ndim)`` pointwise
+              acceleration
     sponge_ref : field toward which the sponge damps (None: no sponge term)
     solver : SolverConfig
+    mixed_precision : f64 state, float32 inner solves with f64 iterative
+              refinement (``ops/mixed.py``).  As in the JAX package this
+              means the ``'laplacian'`` pressure scheme (an approximate
+              projection on the velocity GLL grid), whatever
+              ``solver.pressure_operator`` says; every 2-D
+              ``fused_solves`` + ``'pnpn2'`` combination raises (JAX takes
+              its fused-IR path there on shift-decomposable meshes; not
+              ported).
 
-    ``mixed_precision``, ``u_bc_fn`` and the scalar arguments of the JAX
-    stepper are accepted so a call written for it fails loudly here."""
+    ``u_bc_fn`` and the scalar arguments of the JAX stepper are accepted so
+    a call written for it fails loudly here."""
 
     def __init__(
         self,
-        sem: SEM,
+        sem,
         viscosity: float,
         dt: float,
         u_bc: Optional[torch.Tensor] = None,
@@ -104,27 +153,34 @@ class NavierStokes:
         u_bc_fn: Optional[Callable] = None,
         scalar_diff: Optional[Tuple[float, ...]] = None,
     ):
-        _check_supported(sem, solver, mixed_precision, u_bc_fn, scalar_diff)
+        _check_supported(solver, u_bc_fn, scalar_diff)
+        self._scheme = _scheme(sem, solver, mixed_precision)
         self.sem = s = sem
+        self.ndim = s.ndim
         self.nu = float(viscosity)
         self.dt = float(dt)
         self.solver = solver
-        zeros_u = torch.zeros(tuple(s.bm.shape) + (2,), dtype=s.dtype, device=s.device)
+        zeros_u = torch.zeros(tuple(s.bm.shape) + (self.ndim,), dtype=s.dtype,
+                              device=s.device)
         u_bc = zeros_u if u_bc is None else u_bc.to(device=s.device, dtype=s.dtype)
         # keep only Dirichlet-node values in the lift field
         self.u_bc = (1.0 - s.vmask) * u_bc
         self.forcing = forcing
         self.sponge_ref = sponge_ref
-        # local stiffness diagonal, for the Jacobi velocity preconditioner
+        # local stiffness diagonal, for the Jacobi preconditioners
         self._kdiag_local = None if solver.fdm_precond else s.stiffness_diag()
 
-        if solver.pressure_precond == "block":
+        # legacy mixed precision (ops/mixed.py): f32 inner CG through the
+        # fused local Helmholtz kernel K4, f64 refinement
+        self.mixed = MixedPrecision(s) if mixed_precision else None
+
+        if self._scheme == "pnpn2" and solver.pressure_precond == "block":
             s.setup_pressure_blocks()
 
         # both inner solves as one CUDA kernel each (ops/fused_cg.py)
         self.fused_v = None
         self.fused_p = None
-        if solver.fused_solves:
+        if solver.fused_solves and self.mixed is None:
             from ..ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
 
             self.fused_v = FusedHelmholtzCG(
@@ -138,7 +194,11 @@ class NavierStokes:
     # ------------------------------------------------------------------
     @property
     def p_shape(self):
-        return self.sem.p_shape
+        """The pressure space: P_{N-2} Gauss points for 'pnpn2', else the
+        velocity GLL grid."""
+        if self._scheme == "pnpn2":
+            return self.sem.p_shape
+        return tuple(self.sem.bm.shape)
 
     def make_state(self, u, p=None, time: float = 0.0) -> FlowState:
         s = self.sem
@@ -215,50 +275,70 @@ class NavierStokes:
         bm = s.bm[..., None]
         vmask = s.vmask
         binv = s.binv_assembled[..., None]
+        pnpn2 = self._scheme == "pnpn2"
 
         def Minv_free(g):
             return vmask * (binv * s.dssum(vmask * g))
 
         # weak RHS for the Helmholtz solve, with the weak gradient of the
-        # current pressure (D^T p)
+        # current pressure (D^T p for 'pnpn2', -B grad p for 'laplacian')
         rhs = (
             (1.0 / dt) * bm * (b[0] * u0 + b[1] * ulag0[0] + b[2] * ulag0[1])
             + a[0] * E0 + a[1] * nlag0[0] + a[2] * nlag0[1]
         )
-        rhs = rhs + s.grad_from_p(p0)
+        if pnpn2:
+            rhs = rhs + s.grad_from_p(p0)
+        else:
+            rhs = rhs - bm * s.gradv(p0)
 
         # ---- velocity Helmholtz solve with Dirichlet lift ---------------
         h2 = g0 / dt
+        ndim = self.ndim
 
         def helm_local(w):
             return torch.stack(
-                [s.helmholtz_local(w[..., d], self.nu, h2) for d in range(2)], dim=-1
+                [s.helmholtz_local(w[..., d], self.nu, h2) for d in range(ndim)], dim=-1
             )
 
-        # warm start from the current velocity: solve for the correction
-        # only; the guess must lie in the masked continuous subspace
-        if self.solver.warm_start:
-            x0v = vmask * s.dsavg(vmask * (u0 - u_bc))
-        else:
-            x0v = torch.zeros_like(u0)
-        fused_v = None
-        if self.fused_v is not None:
-            fv = self.fused_v
-            # the kernels take contiguous tensors; einsum outputs may be views
-            fused_v = lambda r: fv.solve(r.contiguous(), self.nu, h2)
         fdm = self.solver.fdm_precond
-        w = x0v + elliptic_solve(
-            s,
-            helm_local,
-            rhs - helm_local(u_bc + x0v),
-            vmask,
-            tol=self.solver.velocity_tol,
-            maxiter=self.solver.velocity_maxiter,
-            diag_local=None if fdm else self.nu * self._kdiag_local + h2 * s.bm,
-            fdm=(self.nu, h2) if fdm else None,
-            fused_solve=fused_v,
-        )
+        if self.mixed is not None:
+            # the mixed branch takes no warm start (as the JAX package's)
+            w = elliptic_solve_mixed(
+                s, self.mixed, self.nu, h2, rhs - helm_local(u_bc), vmask,
+                maxiter=self.solver.velocity_maxiter,
+            )
+        else:
+            # warm start from the current velocity: solve for the correction
+            # only; the guess must lie in the masked continuous subspace
+            if self.solver.warm_start:
+                x0v = vmask * s.dsavg(vmask * (u0 - u_bc))
+            else:
+                x0v = torch.zeros_like(u0)
+            fused_v = None
+            if self.fused_v is not None:
+                fv = self.fused_v
+                # the kernels take contiguous tensors; einsum outputs may be views
+                fused_v = lambda r: fv.solve(r.contiguous(), self.nu, h2)
+            w = x0v + elliptic_solve(
+                s,
+                helm_local,
+                rhs - helm_local(u_bc + x0v),
+                vmask,
+                tol=self.solver.velocity_tol,
+                maxiter=self.solver.velocity_maxiter,
+                diag_local=None if fdm else self.nu * self._kdiag_local + h2 * s.bm,
+                fdm=(self.nu, h2) if fdm else None,
+                fused_solve=fused_v,
+            )
         ustar = w + u_bc
+
+        if not pnpn2:
+            dp = self._pressure_laplacian(ustar, dp0, g0)
+            # approximate projection, mass-averaged back onto C0; the lift
+            # is zero in the tangent step
+            u_new = ustar - (dt / g0) * s.gradv(dp)
+            u_new = vmask * s.dsavg_mass(u_new) + u_bc
+            return self._pack(u_new, p0 + dp, u0, ulag0, E0, nlag0, dp0, dp)
 
         # ---- pressure-increment solve on the Gauss space ----------------
         def E_op(q):
@@ -298,8 +378,10 @@ class NavierStokes:
         # ---- projection: discretely divergence-free; Dirichlet rows of the
         # correction vanish (Minv_free masks), so BCs stay intact
         u_new = ustar + (dt / g0) * Minv_free(s.grad_from_p(dp))
-        p_new = p0 + dp
+        return self._pack(u_new, p0 + dp, u0, ulag0, E0, nlag0, dp0, dp)
 
+    @staticmethod
+    def _pack(u_new, p_new, u0, ulag0, E0, nlag0, dp0, dp) -> Tuple:
         out = (
             u_new,
             p_new,
@@ -309,6 +391,39 @@ class NavierStokes:
         if dp0 is not None:
             out = out + (dp,)
         return out
+
+    def _pressure_laplacian(self, ustar, dp0, g0) -> torch.Tensor:
+        """Pressure increment of the 'laplacian' scheme on the GLL grid:
+        K dp = -(g0/dt) B div(u*), Dirichlet 0 at outflow nodes, the mean
+        removed on enclosed meshes.  The mixed branch carries ``dp`` but
+        takes no warm start from it, as the JAX package's."""
+        s = self.sem
+        rhs_p = -(g0 / self.dt) * s.bm * s.divv(ustar)
+        project_mean = not s.has_pressure_dirichlet
+        if self.mixed is not None:
+            return elliptic_solve_mixed(
+                s, self.mixed, 1.0, 0.0, rhs_p, s.pmask,
+                maxiter=self.solver.pressure_maxiter,
+                project_mean=project_mean, coarse=True,
+            )
+        # warm start from the previous increment (residual-correction form)
+        x0p = dp0 if (dp0 is not None and self.solver.warm_start) else None
+        if x0p is not None:
+            rhs_p = rhs_p - s.stiffness_local(x0p)
+        fdm = self.solver.fdm_precond
+        dp = elliptic_solve(
+            s,
+            s.stiffness_local,
+            rhs_p,
+            s.pmask,
+            tol=self.solver.pressure_tol,
+            maxiter=self.solver.pressure_maxiter,
+            diag_local=self._kdiag_local,
+            project_mean=project_mean,
+            fdm=(1.0, 0.0) if fdm else None,
+            coarse=fdm,
+        )
+        return dp if x0p is None else dp + x0p
 
     # ------------------------------------------------------------------
     def advance(self, state: FlowState, nsteps: int) -> FlowState:

@@ -1,4 +1,5 @@
-"""Flow state (port of ``nekstab_next_tpu/stepper/state.py``, velocity only).
+"""Flow state (port of ``nekstab_next_tpu/stepper/state.py``, velocity only,
+2-D or 3-D).
 
 All tensors carry the element axis first.  ``time`` and ``step`` are host
 scalars: the BDF ramp is chosen on the host, with no device sync."""
@@ -15,8 +16,9 @@ import torch
 class FlowState:
     """One time level of the flow plus BDF3/EXT3 history.
 
-    u     : (nelem, n, n, 2)   velocity
-    p     : (nelem, npr, npr)  pressure (PnPn-2 Gauss space)
+    u     : (nelem, n, .., n, ndim)  velocity, 2 or 3 components
+    p     : pressure: (nelem, npr, npr) on the PnPn-2 Gauss space, or the
+            velocity GLL grid (nelem, n, .., n) for the 'laplacian' scheme
     ulag  : (2, *u.shape)      u at steps n-1, n-2 (BDF history)
     nlag  : (2, *u.shape)      weak explicit terms at steps n-1, n-2 (EXT)
     time  : physical time

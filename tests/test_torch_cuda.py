@@ -10,11 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from nekstab_next_tpu_torch.cases.cube import CubeRoughnessCase
 from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
 from nekstab_next_tpu_torch.config import SolverConfig
+from nekstab_next_tpu_torch.mesh import box_mesh_3d
+from nekstab_next_tpu_torch.ops.core3 import SEM3
 from nekstab_next_tpu_torch.ops.elliptic import make_projector
 from nekstab_next_tpu_torch.ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
+from nekstab_next_tpu_torch.ops.fused_helmholtz import FusedHelmholtz
 from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
 
 pytestmark = pytest.mark.cuda
 MESH = dict(nr=4, ntheta=8, order=6)
@@ -106,3 +111,60 @@ def test_kernels_at_other_orders(case, order):
     k2 = FusedPressureCG(sem, maxiter=300, tol=1e-6)
     assert rel(k2.solve(rhs_p), k2.plain(rhs_p)) < 1e-4
     assert k1.launches == 1 and k2.launches == 1
+
+
+# ---- K4: the fused local Helmholtz apply ------------------------------------
+CUBE = dict(reynolds=60.0, h=1.0, lx=5.0, ly=3.0, lz=3.0, cube_x=2.5,
+            nx=5, ny=3, nz=3, order=3, delta=1.0, target_cfl=0.2)
+
+
+def _k4_case(dim, order):
+    if dim == 2:
+        return CylinderCase(nr=3, ntheta=8, order=order, device="cuda").sem
+    return SEM3(box_mesh_3d(3, 2, 3, order=order, periodic_z=True), device="cuda")
+
+
+@pytest.mark.parametrize("dim,order,C", [
+    (2, 6, 2), (2, 3, 1), (2, 7, 3), (3, 6, 3), (3, 3, 1), (3, 4, 2), (3, 7, 3),
+])
+def test_fused_helmholtz_kernel_matches_plain(case, dim, order, C):
+    # n = order + 1 in 4..8, d = 2 and 3, 1..3 components in one launch;
+    # partial last blocks (several elements per block at small n)
+    sem = _k4_case(dim, order)
+    k4 = FusedHelmholtz(sem)
+    u = torch.as_tensor(np.random.default_rng(order * C).standard_normal(
+        k4.node_shape + ((C,) if C > 1 else ())), dtype=torch.float32, device="cuda")
+    got, ref = k4.apply(u, 0.0167, 100.0), k4.plain(u, 0.0167, 100.0)
+    torch.cuda.synchronize()
+    assert k4.launches == 1
+    # f32 in another summation order (sum-factorised vs einsum)
+    assert rel(got, ref) < 1e-5
+
+
+def test_fused_helmholtz_kernel_rejects_what_it_cannot_take(case):
+    k4 = FusedHelmholtz(case.sem)
+    u = torch.zeros(k4.node_shape + (2,), dtype=torch.float32, device="cuda")
+    for bad, match in ((u.double(), "float32"), (u[..., :1].expand_as(u), "contiguous"),
+                       (u[:-1], "shape"), (torch.zeros(k4.node_shape + (4,), device="cuda"),
+                                            "shape")):
+        with pytest.raises(ValueError, match=match):
+            k4.apply(bad, 1.0, 1.0)
+    assert k4.launches == 0
+
+
+def test_mixed_cube_matvec_kernel_matches_plain(case):
+    cube = CubeRoughnessCase(**CUBE, device="cuda",
+                             solver=SolverConfig(pressure_tol=1e-7, velocity_tol=1e-8,
+                                                 pressure_maxiter=300, velocity_maxiter=120))
+    ns = NavierStokes(cube.sem, viscosity=cube.h / cube.reynolds, dt=cube.dt,
+                      u_bc=cube.u_bc, solver=cube.solver, mixed_precision=True)
+    op = LinearizedOperator(ns, cube.initial_flow(), nsteps=2)
+    q = cube.sem.vmask * torch.as_tensor(
+        np.random.default_rng(3).standard_normal(tuple(cube.sem.bm.shape) + (3,)),
+        device="cuda")
+    got = op.matvec(q)
+    assert ns.mixed.fused.launches > 0
+    ns.mixed.fused.apply = ns.mixed.fused.plain
+    ref = op.matvec(q)
+    # both refine every solve to f64
+    assert rel(got, ref) < 1e-9

@@ -34,7 +34,7 @@ H1, H2 = 0.0167, 100.0  # test_fused_cg.py's Helmholtz coefficients
 def sems():
     jsem = JaxSEM(jax_cylinder_mesh(nr=4, ntheta=8, order=6), dtype=jnp.float32)
     jsem.setup_pressure_blocks()
-    return jsem, sem_from_arrays(sem_arrays(jsem), dtype=torch.float32)
+    return jsem, sem_from_arrays(sem_arrays(jsem), dtype=torch.float32, device="cpu")
 
 
 def rel(ref, got) -> float:
@@ -86,10 +86,10 @@ def test_plain_pressure_cg_mean_projection(sems):
 
 def test_kernel_scope_raises():
     with pytest.raises(ValueError, match="float32"):
-        check_kernel_scope(SEM(cylinder_mesh(nr=2, ntheta=4, order=6)))
+        check_kernel_scope(SEM(cylinder_mesh(nr=2, ntheta=4, order=6), device="cpu"))
     with pytest.raises(ValueError, match="order"):
         check_kernel_scope(SEM(cylinder_mesh(nr=2, ntheta=4, order=8),
-                               dtype=torch.float32))
+                               dtype=torch.float32, device="cpu"))
 
 
 def test_launch_checks_raise(sems):
@@ -144,7 +144,8 @@ def test_pressure_kernel_constants(sems):
 
 def test_cuda_sources_and_flags():
     cu, cuh = _cuda._sources()
-    assert [f.name for f in cu] == ["fused_helmholtz_cg.cu", "fused_pressure_cg.cu"]
+    assert [f.name for f in cu] == ["fused_helmholtz.cu", "fused_helmholtz_cg.cu",
+                                    "fused_pressure_cg.cu"]
     assert [f.name for f in cuh] == ["sem_device.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
     for f in cu:  # one C entry point per kernel, as ctypes binds them

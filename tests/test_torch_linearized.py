@@ -24,7 +24,7 @@ MESH = dict(nr=4, ntheta=8, order=6)
 
 def port_stepper(jcase, jns, dtype):
     """The port's stepper on the JAX case's factors and config."""
-    sem = sem_from_arrays(sem_arrays(jcase.sem), dtype=dtype)
+    sem = sem_from_arrays(sem_arrays(jcase.sem), dtype=dtype, device="cpu")
     return NavierStokes(
         sem, viscosity=jns.nu, dt=jns.dt,
         u_bc=torch.as_tensor(np.array(jcase.u_bc)),
@@ -95,7 +95,7 @@ def test_matvec_fused_plain_matches_jax_f32_bench_caps():
 def test_matvec_is_linear():
     # the inner CG's exit test is relative (||r|| <= tol ||b||), so the
     # tangent map scales exactly up to roundoff
-    case = CylinderCase(**MESH, solver=SolverConfig(
+    case = CylinderCase(**MESH, device="cpu", solver=SolverConfig(
         pressure_tol=1e-5, velocity_tol=1e-6, pressure_maxiter=16,
         velocity_maxiter=10, pressure_precond="block"))
     op = LinearizedOperator(case.make_ns(), case.uniform_flow(), nsteps=3)
@@ -106,7 +106,7 @@ def test_matvec_is_linear():
 
 
 def test_adjoint_and_forcing_raise():
-    case = CylinderCase(nr=2, ntheta=4, order=4)
+    case = CylinderCase(nr=2, ntheta=4, order=4, device="cpu")
     ns = case.make_ns()
     op = LinearizedOperator(ns, case.uniform_flow(), nsteps=2)
     with pytest.raises(NotImplementedError):

@@ -35,9 +35,9 @@ OP_RTOL = 1e-12
 def sems():
     jsem = JaxSEM(jax_cylinder_mesh(**MESH))
     jsem.setup_pressure_blocks()
-    own = SEM(cylinder_mesh(**MESH))
+    own = SEM(cylinder_mesh(**MESH), device="cpu")
     own.setup_pressure_blocks()
-    return jsem, own, sem_from_arrays(sem_arrays(jsem))
+    return jsem, own, sem_from_arrays(sem_arrays(jsem), device="cpu")
 
 
 def relerr(ref, got) -> float:
@@ -48,6 +48,7 @@ def relerr(ref, got) -> float:
 
 def test_port_imports_no_jax():
     code = ("import sys, nekstab_next_tpu_torch.cases.cylinder, "
+            "nekstab_next_tpu_torch.cases.cube, nekstab_next_tpu_torch.ops.mixed, "
             "nekstab_next_tpu_torch.stepper.linearized, nekstab_next_tpu_torch.interop, "
             "nekstab_next_tpu_torch.ops.fused_cg; assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
@@ -91,7 +92,7 @@ def test_sem_from_arrays_installs_factors(sems):
         np.testing.assert_array_equal(getattr(port, key).numpy(),
                                       np.asarray(getattr(jsem, key)))
     assert port.dtype == torch.float64
-    f32 = sem_from_arrays(sem_arrays(jsem), dtype=torch.float32)
+    f32 = sem_from_arrays(sem_arrays(jsem), dtype=torch.float32, device="cpu")
     assert f32.bm.dtype == torch.float32 and f32.gid.dtype == torch.int64
 
 
@@ -101,14 +102,14 @@ def test_sem_rejects_3d_factors(sems):
     arrays = sem_arrays(jsem)
     arrays["bm"] = np.asarray(arrays["bm"])[..., None].repeat(7, axis=-1)
     with pytest.raises(NotImplementedError):
-        sem_from_arrays(arrays)
+        sem_from_arrays(arrays, device="cpu")
 
 
 def test_sem_rejects_sharding():
     # the JAX SEM shards its element axis under axis_name; the port's SEM is
     # single-device and says so instead of ignoring the argument
     with pytest.raises(NotImplementedError, match="sharding"):
-        SEM(cylinder_mesh(nr=2, ntheta=4, order=4), axis_name="elements")
+        SEM(cylinder_mesh(nr=2, ntheta=4, order=4), device="cpu", axis_name="elements")
 
 
 def _inputs(jsem):
@@ -182,7 +183,7 @@ def test_dssum_copies_bit_identical(sems):
 
 def test_set_sponge_matches_jax():
     jsem = JaxSEM(jax_cylinder_mesh(**MESH))
-    port = SEM(cylinder_mesh(**MESH))
+    port = SEM(cylinder_mesh(**MESH), device="cpu")
     lam = np.clip(np.asarray(jsem.mesh.x) / 10.0, 0.0, None)
     jsem.set_sponge(lam)
     port.set_sponge(lam)

@@ -29,7 +29,7 @@ TIGHT = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=400,
 
 def port_stepper(jcase, jns, dtype):
     """The port's stepper on the JAX case's factors and config."""
-    sem = sem_from_arrays(sem_arrays(jcase.sem), dtype=dtype)
+    sem = sem_from_arrays(sem_arrays(jcase.sem), dtype=dtype, device="cpu")
     return NavierStokes(
         sem, viscosity=jns.nu, dt=jns.dt,
         u_bc=torch.as_tensor(np.array(jcase.u_bc)),
@@ -87,7 +87,7 @@ def test_advance_fused_plain_matches_jax_f32():
 
 def test_cylinder_case_matches_jax():
     jcase = JaxCylinderCase(**MESH)
-    case = CylinderCase(**MESH)
+    case = CylinderCase(**MESH, device="cpu")
     assert case.dt == jcase.dt
     np.testing.assert_array_equal(case.u_bc.numpy(), np.asarray(jcase.u_bc))
     np.testing.assert_array_equal(case.uniform_flow().numpy(),
@@ -97,7 +97,8 @@ def test_cylinder_case_matches_jax():
 
 
 def test_propagator_is_advance():
-    case = CylinderCase(**MESH, solver=SolverConfig(**TIGHT, pressure_precond="block"))
+    case = CylinderCase(**MESH, device="cpu",
+                        solver=SolverConfig(**TIGHT, pressure_precond="block"))
     ns = case.make_ns()
     u0 = case.uniform_flow()
     st = ns.make_state(u0)
@@ -108,7 +109,8 @@ def test_propagator_is_advance():
 
 # every option the port does not implement raises where it is read
 UNSUPPORTED = {
-    "mixed_precision": dict(kw=dict(mixed_precision=True)),
+    # 2-D fused_solves + 'pnpn2' + mixed is JAX's fused-IR path (ROADMAP 8)
+    "mixed_precision": dict(kw=dict(mixed_precision=True), cfg=dict(fused_solves=True)),
     "u_bc_fn": dict(kw=dict(u_bc_fn=lambda t: 0.0)),
     "scalars": dict(kw=dict(scalar_diff=(0.01,))),
     "lanes_layout": dict(cfg=dict(lanes_layout=True)),
@@ -119,7 +121,7 @@ UNSUPPORTED = {
     "fused_pressure_off": dict(cfg=dict(fused_solves=True, fused_pressure=False)),
     "schwarz": dict(cfg=dict(pressure_precond="schwarz")),
     "velocity_block": dict(cfg=dict(velocity_precond="block")),
-    "pressure_operator": dict(cfg=dict(pressure_operator="laplacian")),
+    "pressure_operator": dict(cfg=dict(pressure_operator="consistent")),
     "bdf_order": dict(cfg=dict(bdf_order=2)),
 }
 
@@ -127,7 +129,7 @@ UNSUPPORTED = {
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_option_raises(name):
     spec = UNSUPPORTED[name]
-    sem = SEM(cylinder_mesh(nr=2, ntheta=4, order=4), dtype=torch.float32)
+    sem = SEM(cylinder_mesh(nr=2, ntheta=4, order=4), dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError):
         NavierStokes(sem, viscosity=0.01, dt=0.01,
                      solver=SolverConfig(**spec.get("cfg", {})), **spec.get("kw", {}))
@@ -135,7 +137,8 @@ def test_unsupported_option_raises(name):
 
 def test_fused_solves_raise_outside_kernel_scope():
     with pytest.raises(ValueError, match="float32"):  # f64 fields
-        CylinderCase(nr=2, ntheta=4, solver=SolverConfig(fused_solves=True)).make_ns()
+        CylinderCase(nr=2, ntheta=4, device="cpu",
+                     solver=SolverConfig(fused_solves=True)).make_ns()
     with pytest.raises(ValueError, match="order"):  # n = 10: no 64-thread slot
-        CylinderCase(nr=2, ntheta=4, order=9, dtype=torch.float32,
+        CylinderCase(nr=2, ntheta=4, order=9, dtype=torch.float32, device="cpu",
                      solver=SolverConfig(fused_solves=True)).make_ns()
