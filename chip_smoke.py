@@ -6,11 +6,15 @@ Builds the CUDA kernels from ``nekstab_next_tpu_torch/csrc`` (one nvcc per
 source, sm_90a, all at once) and drives:
 
 1. the flagship 2-D path: checks K1 and K2 (the whole-solve CG kernels)
-   against their plain PyTorch versions at the flagship shapes, runs the
-   flagship 50-step f32 tangent matvec (the quantity ``bench.py`` times:
-   768-element Re=60 cylinder, order 6, caps 16/10) through them, checks it
-   against the plain versions and an f64 reference, runs 20 nonlinear steps
-   and times everything with CUDA events;
+   against their plain PyTorch versions at the flagship shapes and on a
+   4,608-element cylinder whose element groups outnumber the blocks that
+   fit on the card (the kernels' grid-stride path), printing each launch's
+   grid and a digest of each result; runs the flagship 50-step f32 tangent
+   matvec (the quantity ``bench.py`` times: 768-element Re=60 cylinder,
+   order 6, caps 16/10) through them, checks it against the plain versions
+   and an f64 reference, runs 20 nonlinear steps and times everything with
+   CUDA events, K1 and K2 also at tol 0 for maxiter 1, 4 and 16 (the
+   per-iteration time is the slope);
 2. the 3-D mixed-precision path: checks K4 (the fused local Helmholtz
    apply) against its plain version at the cylinder's shape and at both of
    the cube's (the three-component velocity apply and the one-component
@@ -24,8 +28,10 @@ of JAX.
 
 Output: one line per result, then a ``{"kernels": [...]}`` JSON line (each
 kernel's launches on its path, max abs error against its plain version,
-time, plain time, and the least time the card could take, ``bound_ms``),
-the card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+time, plain time, and the least time the card could take, ``bound_ms``;
+for K1 and K2 also ``per_iter_ms`` and ``phases``, the grid barriers the
+timed solve crossed), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
 port's package beside this script.
 """
@@ -33,6 +39,7 @@ port's package beside this script.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import subprocess
 import sys
@@ -48,6 +55,11 @@ CAPS_F32 = dict(pressure_tol=1e-5, velocity_tol=1e-6, pressure_maxiter=16,
                 velocity_maxiter=10, pressure_precond="block")
 CAPS_TIGHT = dict(pressure_tol=1e-10, velocity_tol=1e-10, pressure_maxiter=2000,
                   velocity_maxiter=500, pressure_precond="block")
+# the flagship cylinder refined 2 x 3: 4,608 elements, 1,152 element groups
+# of 4, more than the 1,056 blocks of 256 threads an H100 can hold at once,
+# so K1 and K2 run their grid-stride path (a block owns several groups)
+LARGE = dict(reynolds=60.0, nr=32, ntheta=144, order=6, outer_radius=40.0)
+SWEEP = (1, 4, 16)  # maxiter of the tol = 0 timing sweep
 TPU_KERNEL = {  # the pallas_call each kernel replaces
     "fused_helmholtz_cg": "nekstab_next_tpu/ops/fused_cg.py:394",
     "fused_pressure_cg": "nekstab_next_tpu/ops/fused_cg.py:665",
@@ -213,6 +225,100 @@ def make_case(dtype, caps, fused: bool):
                         solver=SolverConfig(**caps, fused_solves=fused))
 
 
+def digest(t) -> str:
+    """First 16 hex digits of the sha256 of a tensor's bytes: equal digests
+    mean bit-identical results."""
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def cg_inputs(sem, rng):
+    """Seeded right-hand sides of K1 (projected, C = 2) and K2."""
+    import torch
+    from nekstab_next_tpu_torch.ops.elliptic import make_projector
+
+    dev = sem.device
+    rhs_v = make_projector(sem, sem.vmask)(
+        torch.as_tensor(rng.standard_normal(tuple(sem.bm.shape) + (2,)),
+                        dtype=torch.float32, device=dev))
+    rhs_p = torch.as_tensor(rng.standard_normal(sem.p_shape), dtype=torch.float32, device=dev)
+    return rhs_v, rhs_p
+
+
+def check_cg_kernels(label: str, sem, h1: float, h2: float, rng, grid_stride: bool = False):
+    """Hold K1 (C = 2, maxiter 10, tol 1e-6; rel < 1e-5) and K2 (tol 1e-6;
+    rel < 1e-4 at maxiter 300, < 1e-3 at 16) against their plain versions
+    on seeded inputs, printing each launch's grid; with ``grid_stride``
+    fail unless the grid is smaller than the element groups.  Returns
+    (rhs_v, rhs_p, the K1 instance, max abs errors by kernel)."""
+    import torch
+    from nekstab_next_tpu_torch.ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
+
+    rhs_v, rhs_p = cg_inputs(sem, rng)
+    k1 = FusedHelmholtzCG(sem, sem.vmask, maxiter=10, tol=1e-6)
+    x_k, x_p = k1.solve(rhs_v, h1, h2), k1.plain(rhs_v, h1, h2)
+    torch.cuda.synchronize()
+    r1 = rel(x_k, x_p)
+    err = {"fused_helmholtz_cg": float((x_k - x_p).abs().max())}
+    groups = -(-sem.nelem // 4)
+
+    def check_grid(k, name):
+        log(f"  {name} launch at the {label}: {k.grid} blocks of 256 threads for {groups} "
+            f"element groups (at most {k.resident} fit on the card)")
+        if grid_stride and not k.grid < groups:
+            fail(f"{name} at the {label}: {k.grid} blocks cover all {groups} groups, "
+                 "the grid-stride path did not run")
+
+    log(f"K1 fused_helmholtz_cg vs plain at the {label} (C=2, maxiter 10, tol 1e-6): "
+        f"rel {r1:.3e} (bound 1e-5), digest {digest(x_k)}")
+    check_grid(k1, "K1")
+    if not (r1 < 1e-5):
+        fail(f"K1 disagrees with its plain version at the {label}: rel {r1:.3e}")
+    errs_p = []
+    for maxiter, bound in ((300, 1e-4), (16, 1e-3)):
+        k2 = FusedPressureCG(sem, maxiter=maxiter, tol=1e-6,
+                             project_mean=not sem.has_pressure_dirichlet)
+        y_k, y_p = k2.solve(rhs_p), k2.plain(rhs_p)
+        torch.cuda.synchronize()
+        r2 = rel(y_k, y_p)
+        errs_p.append(float((y_k - y_p).abs().max()))
+        log(f"K2 fused_pressure_cg vs plain at the {label} (maxiter {maxiter}, tol 1e-6): "
+            f"rel {r2:.3e} (bound {bound:g}), digest {digest(y_k)}")
+        check_grid(k2, "K2")
+        if not (r2 < bound):
+            fail(f"K2 disagrees with its plain version at the {label}, maxiter {maxiter}: "
+                 f"rel {r2:.3e}")
+    err["fused_pressure_cg"] = max(errs_p)
+    return rhs_v, rhs_p, k1, err
+
+
+def cg_sweep(sem, rhs_v, rhs_p, h1: float, h2: float, tag: str) -> dict:
+    """Device time of one K1 and one K2 solve at tol = 0 for each maxiter of
+    SWEEP (every solve runs exactly maxiter iterations) and the
+    least-squares line through them: per_iter_ms (slope) and setup_ms
+    (intercept)."""
+    from nekstab_next_tpu_torch.ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
+
+    solvers = {
+        "fused_helmholtz_cg": (lambda m: FusedHelmholtzCG(sem, sem.vmask, maxiter=m, tol=0.0),
+                               lambda k: k.solve(rhs_v, h1, h2)),
+        "fused_pressure_cg": (lambda m: FusedPressureCG(
+            sem, maxiter=m, tol=0.0, project_mean=not sem.has_pressure_dirichlet),
+            lambda k: k.solve(rhs_p)),
+    }
+    out = {}
+    for name, (make, call) in solvers.items():
+        ms = []
+        for m in SWEEP:
+            k = make(m)
+            ms.append(kernel_ms(lambda: call(k), 20))
+        slope, icpt = np.polyfit(SWEEP, ms, 1)
+        out[name] = {"sweep_ms": ms, "per_iter_ms": float(slope), "setup_ms": float(icpt)}
+        log(f"timing {tag} {name} at tol 0, maxiter {SWEEP}: "
+            + ", ".join(f"{t:.4f}" for t in ms)
+            + f" ms; per iteration {slope * 1e3:.3f} us, set-up {icpt * 1e3:.3f} us")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device -----------------------------------------------------
@@ -221,6 +327,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     import nekstab_next_tpu_torch  # noqa: F401  (the port, beside this script)
+    from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
     from nekstab_next_tpu_torch.ops import _cuda
     from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
 
@@ -237,43 +344,25 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # ---- 3. kernels against their plain versions, flagship shapes -----
+    # ---- 3. K1, K2 against their plain versions: flagship, larger mesh -
     case = make_case(torch.float32, CAPS_F32, fused=True)
     sem = case.sem
     ns = case.make_ns()
     fv, fp = ns.fused_v, ns.fused_p
     log(f"flagship: {sem.nelem} elements, n={sem.n}, {case.mesh.npoints * 2} velocity dof, "
         f"{sem.pc_nc} coarse vertices, dt={case.dt:.6g}")
-    from nekstab_next_tpu_torch.ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
-    from nekstab_next_tpu_torch.ops.elliptic import make_projector
-
     rng = np.random.default_rng(0)
     dev = sem.device
     h1, h2 = 1.0 / 60.0, (11.0 / 6.0) / case.dt
-    rhs_v = make_projector(sem, sem.vmask)(
-        torch.as_tensor(rng.standard_normal(tuple(sem.bm.shape) + (2,)),
-                        dtype=torch.float32, device=dev))
-    rhs_p = torch.as_tensor(rng.standard_normal(sem.p_shape), dtype=torch.float32, device=dev)
-    k1 = FusedHelmholtzCG(sem, sem.vmask, maxiter=10, tol=1e-6)
-    x_k, x_p = k1.solve(rhs_v, h1, h2), k1.plain(rhs_v, h1, h2)
-    torch.cuda.synchronize()
-    r1 = rel(x_k, x_p)
-    err = {"fused_helmholtz_cg": float((x_k - x_p).abs().max())}
-    log(f"K1 fused_helmholtz_cg vs plain (C=2, maxiter 10, tol 1e-6): rel {r1:.3e} (bound 1e-5)")
-    if not (r1 < 1e-5):
-        fail(f"K1 disagrees with its plain version: rel {r1:.3e}")
-    errs_p = []
-    for maxiter, bound in ((300, 1e-4), (16, 1e-3)):
-        k2 = FusedPressureCG(sem, maxiter=maxiter, tol=1e-6,
-                             project_mean=not sem.has_pressure_dirichlet)
-        y_k, y_p = k2.solve(rhs_p), k2.plain(rhs_p)
-        torch.cuda.synchronize()
-        r2 = rel(y_k, y_p)
-        errs_p.append(float((y_k - y_p).abs().max()))
-        log(f"K2 fused_pressure_cg vs plain (maxiter {maxiter}, tol 1e-6): rel {r2:.3e} (bound {bound:g})")
-        if not (r2 < bound):
-            fail(f"K2 disagrees with its plain version at maxiter {maxiter}: rel {r2:.3e}")
-    err["fused_pressure_cg"] = max(errs_p)
+    rhs_v, rhs_p, k1, err = check_cg_kernels("flagship", sem, h1, h2, rng)
+    t0 = time.perf_counter()
+    large = CylinderCase(**LARGE, dtype=torch.float32, device=dev)
+    log(f"larger mesh: {large.sem.nelem} elements, n={large.sem.n}, "
+        f"{large.sem.pc_nc} coarse vertices, set-up {time.perf_counter() - t0:.1f} s")
+    err_large = check_cg_kernels("larger mesh", large.sem, h1, h2,
+                                 np.random.default_rng(1), grid_stride=True)[3]
+    err = {k: max(v, err_large[k]) for k, v in err.items()}
+    del large
 
     # ---- 4. flagship tangent matvec through the kernels ----------------
     base = case.uniform_flow()
@@ -347,6 +436,11 @@ def main() -> None:
     }
     for name, (ms_k, ms_p) in solve_ms.items():
         log(f"timing {tag} one {name} solve (flagship caps): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+    k1.solve(rhs_v, h1, h2)
+    fp.solve(rhs_p)
+    phases = {"fused_helmholtz_cg": k1.last_barriers(), "fused_pressure_cg": fp.last_barriers()}
+    log(f"grid barriers of the timed solves: {phases}")
+    sweep = cg_sweep(sem, rhs_v, rhs_p, h1, h2, tag)
 
     # bounds of the two timed solves: inputs read once, the output written
     # once, the iterations these inputs need (counted by the plain versions)
@@ -489,7 +583,9 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
          "launches": launches[name], "max_abs_err": err[name],
          "ms": solve_ms[name][0], "plain_ms": solve_ms[name][1],
-         **bounds[name], "library_ms": None}
+         **bounds[name], "library_ms": None,
+         **({"per_iter_ms": sweep[name]["per_iter_ms"], "phases": phases[name]}
+            if name in sweep else {})}
         for name in ("fused_helmholtz_cg", "fused_pressure_cg", "fused_helmholtz")
     ]
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")

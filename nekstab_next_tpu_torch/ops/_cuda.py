@@ -38,15 +38,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "nsk_fused_helmholtz_cg": (
         [_I] * 5 + [_F] * 3        # device, n, E, C, maxiter; tol, h1, h2
-        + [_P] * 8                 # rhs, x, r, p, z, Ap, w, part
+        + [_P] * 9                 # rhs, x, r, p, z, Ap, w, bar, part
         + [_P] * 10                # D, S, lam, fgeo, g11, g12, g22, bm, imult, vmask
-        + [_P] * 3 + [_P]          # gid, gs_off, gs_idx; stream
+        + [_P, _I] + [_P] * 2      # copies, M; stream, info
     ),
     "nsk_fused_pressure_cg": (
         [_I] * 5 + [_F] + [_I]     # device, n, E, nc, maxiter; tol; project_mean
-        + [_P] * 10                # rhs, x, r, p, z, Ap, w, rc, xc, part
+        + [_P] * 10                # rhs, x, r, p, z, Ap, w, rc, bar, part
         + [_P] * 12                # D, Jg, Kc, rx, ry, sx, sy, bm, binv, vmask, pinv, Acinv
-        + [_P] * 6 + [_P]          # cid, vtx_off, vtx_idx, gid, gs_off, gs_idx; stream
+        + [_P] * 2 + [_I]          # cid, vtx, MV
+        + [_P, _I] + [_P] * 2      # copies, M; stream, info
     ),
     "nsk_fused_helmholtz": (
         [_I] * 5 + [_F] * 2        # device, dim, n, E, C; h1, h2

@@ -17,7 +17,9 @@ the other.  ``plain`` is the same function — the same live-masked PCG, the
 same early exit at ``rr <= tol^2 bb`` and ``maxiter`` cap, the same FDM
 threshold and preconditioners — written with the ``SEM`` operators; the
 tests hold it against the JAX kernels and the card holds the kernels
-against it.  Each instance counts its kernel launches in ``launches``.
+against it.  Each instance counts its kernel launches in ``launches`` and
+keeps the last launch's grid (``grid``, ``resident``) and barrier count
+(``last_barriers``).
 
 Scope: 2-D, single device, float32 fields, n = order + 1 in 4..8 (one
 element's n*n nodes fit a 64-thread slot).  Unlike the TPU kernels, any
@@ -27,10 +29,13 @@ node->copies table, not a shift decomposition.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from .cg import pcg
+from .core import gather_table
 from .schwarz import make_pressure_operator
 
 KERNEL_N = range(4, 9)  # supported n = order + 1
@@ -50,11 +55,12 @@ def check_kernel_scope(sem) -> None:
         )
 
 
-def _csr(keys: np.ndarray, nkeys: int):
-    """(off, idx) int32: slots grouped by key, in increasing slot order."""
-    idx = np.argsort(keys, kind="stable")
-    off = np.searchsorted(keys[idx], np.arange(nkeys + 1))
-    return off.astype(np.int32), idx.astype(np.int32)
+def padded_lists(keys: np.ndarray, nkeys: int) -> np.ndarray:
+    """(nkeys, m) int32: the slots of each key in increasing slot order,
+    padded with -1 (m: the most slots any key has).  The kernels sum over a
+    row in this order."""
+    tbl = gather_table(keys, nkeys)
+    return np.where(tbl == keys.size, -1, tbl).astype(np.int32)
 
 
 class _FusedBase:
@@ -66,12 +72,39 @@ class _FusedBase:
         self.tol = float(tol)
         self.launches = 0
         self._dev = None  # device-side kernel constants, built at first launch
+        # the last launch: its grid (blocks), the most blocks that fit on the
+        # card at once, and its zeroed partials + barrier-counter buffer
+        self.grid = self.resident = 0
+        self._sync = None
 
     def _gather_consts(self, dev) -> dict:
+        """The dssum as the kernels read it: every local node's list of the
+        local copies of its global node (``padded_lists`` order, -1 pads)."""
         sem = self.sem
-        off, idx = _csr(sem.gid_np, sem.nglobal)
-        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
-        return dict(gid=i32(sem.gid_np), gs_off=i32(off), gs_idx=i32(idx))
+        copies = padded_lists(sem.gid_np, sem.nglobal)[sem.gid_np]
+        return dict(copies=torch.as_tensor(copies, device=dev))
+
+    def _sync_buffer(self, dev) -> torch.Tensor:
+        """Zeroed float64 scratch for one launch: four rows of block partials
+        (at most E / 4 blocks), then the grid barrier's arrival counter."""
+        self._sync = torch.zeros(4 * self.E + 1, dtype=torch.float64, device=dev)
+        return self._sync
+
+    def _pointers(self, sync: torch.Tensor):
+        """(barrier counter, partials) pointers into a ``_sync_buffer``."""
+        return sync.data_ptr() + 8 * 4 * self.E, sync.data_ptr()
+
+    def _launched(self, err: int, info, name: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        self.grid, self.resident = int(info[0]), int(info[1])
+        self.launches += 1
+
+    def last_barriers(self) -> int:
+        """Grid barriers the last launch crossed (synchronises): every block
+        adds one to the counter per barrier."""
+        count = self._sync[4 * self.E:].view(torch.int32)[0]
+        return int(count) // self.grid
 
     def _check(self, x: torch.Tensor, shape) -> None:
         if x.device.type != "cuda":
@@ -84,11 +117,6 @@ class _FusedBase:
             raise ValueError("expected a contiguous tensor")
         if x.device != self.sem.device:
             raise ValueError(f"tensor on {x.device}, SEM on {self.sem.device}")
-
-    @staticmethod
-    def _raise_on(err: int, name: str) -> None:
-        if err != 0:
-            raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
 class FusedHelmholtzCG(_FusedBase):
@@ -147,19 +175,19 @@ class FusedHelmholtzCG(_FusedBase):
         c = self._dev
         out = torch.empty_like(b)
         scratch = torch.empty((5,) + tuple(b.shape), dtype=b.dtype, device=b.device)
-        part = torch.empty(4 * self.E, dtype=torch.float64, device=b.device)
+        sync = self._sync_buffer(b.device)
+        info = (ctypes.c_int * 2)()
         lib = library()
         err = lib.nsk_fused_helmholtz_cg(
             b.device.index or 0, self.n, self.E, self.C, self.maxiter, self.tol,
             h1, h2, b.data_ptr(), out.data_ptr(),
-            *(scratch[k].data_ptr() for k in range(5)), part.data_ptr(),
+            *(scratch[k].data_ptr() for k in range(5)), *self._pointers(sync),
             *(c[k].data_ptr() for k in ("D", "S", "lam", "fgeo", "g11", "g12",
-                                        "g22", "bm", "imult", "vmask",
-                                        "gid", "gs_off", "gs_idx")),
-            torch.cuda.current_stream(b.device).cuda_stream,
+                                        "g22", "bm", "imult", "vmask", "copies")),
+            c["copies"].shape[1], torch.cuda.current_stream(b.device).cuda_stream,
+            ctypes.addressof(info),
         )
-        self._raise_on(err, "fused_helmholtz_cg")
-        self.launches += 1
+        self._launched(err, info, "fused_helmholtz_cg")
         return out[..., 0] if squeeze else out
 
     def _device_consts(self, dev) -> dict:
@@ -226,22 +254,21 @@ class FusedPressureCG(_FusedBase):
         scratch = torch.empty((4,) + tuple(rhs.shape), dtype=rhs.dtype, device=dev)
         w = torch.empty((self.E, self.n, self.n, 2), dtype=rhs.dtype, device=dev)
         rc = torch.empty((self.E, 4), dtype=rhs.dtype, device=dev)
-        xc = torch.empty(nc, dtype=rhs.dtype, device=dev)
-        part = torch.empty(4 * self.E, dtype=torch.float64, device=dev)
+        sync = self._sync_buffer(dev)
+        info = (ctypes.c_int * 2)()
         lib = library()
         err = lib.nsk_fused_pressure_cg(
             dev.index or 0, self.n, self.E, nc, self.maxiter, self.tol,
             int(self.project_mean), rhs.data_ptr(), out.data_ptr(),
             *(scratch[k].data_ptr() for k in range(4)), w.data_ptr(),
-            rc.data_ptr(), xc.data_ptr(), part.data_ptr(),
+            rc.data_ptr(), *self._pointers(sync),
             *(c[k].data_ptr() for k in ("D", "Jg", "Kc", "rx", "ry", "sx", "sy",
                                         "bm", "binv", "vmask", "pinv", "Acinv",
-                                        "cid", "vtx_off", "vtx_idx",
-                                        "gid", "gs_off", "gs_idx")),
-            torch.cuda.current_stream(dev).cuda_stream,
+                                        "cid", "vtx")),
+            c["vtx"].shape[1], c["copies"].data_ptr(), c["copies"].shape[1],
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.addressof(info),
         )
-        self._raise_on(err, "fused_pressure_cg")
-        self.launches += 1
+        self._launched(err, info, "fused_pressure_cg")
         return out
 
     def _device_consts(self, dev) -> dict:
@@ -256,9 +283,9 @@ class FusedPressureCG(_FusedBase):
                  bm=f32(sem.bm), binv=f32(sem.binv_assembled),
                  vmask=f32(sem.vmask), pinv=f32(sem.pblock_inv),
                  Acinv=f32(sem.pc_Acinv))
+        # the Q1 vertex sums: every vertex's list of (element, corner) slots
         cid = sem.pc_cid_np
-        off, idx = _csr(cid.reshape(-1), sem.pc_nc)
-        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
-        c.update(cid=i32(cid), vtx_off=i32(off), vtx_idx=i32(idx))
+        c.update(cid=torch.as_tensor(cid, dtype=torch.int32, device=dev),
+                 vtx=torch.as_tensor(padded_lists(cid.reshape(-1), sem.pc_nc), device=dev))
         c.update(self._gather_consts(dev))
         return c

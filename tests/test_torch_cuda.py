@@ -113,6 +113,43 @@ def test_kernels_at_other_orders(case, order):
     assert k1.launches == 1 and k2.launches == 1
 
 
+@pytest.mark.parametrize("maxiter", [1, 4, 16])
+def test_cg_kernels_at_tol_zero(case, maxiter):
+    # chip_smoke.py's timing sweep: at tol 0 every solve runs exactly maxiter
+    # iterations; each crosses 2 + 4 maxiter grid barriers
+    sem = case.sem
+    rng = np.random.default_rng(maxiter)
+    rhs = make_projector(sem, sem.vmask)(torch.as_tensor(
+        rng.standard_normal(tuple(sem.bm.shape) + (2,)), dtype=torch.float32, device="cuda"))
+    k1 = FusedHelmholtzCG(sem, sem.vmask, maxiter=maxiter, tol=0.0)
+    got, (ref, it) = k1.solve(rhs, 0.0167, 100.0), k1.plain(rhs, 0.0167, 100.0, return_iters=True)
+    assert it == maxiter and k1.last_barriers() == 2 + 4 * maxiter
+    assert rel(got, ref) < 1e-5
+    rhs_p = torch.as_tensor(rng.standard_normal(sem.p_shape), dtype=torch.float32, device="cuda")
+    k2 = FusedPressureCG(sem, maxiter=maxiter, tol=0.0)
+    got, (ref, it) = k2.solve(rhs_p), k2.plain(rhs_p, return_iters=True)
+    assert it == maxiter and k2.last_barriers() == 2 + 4 * maxiter
+    assert rel(got, ref) < 1e-3  # capped iterates: roundoff-sensitive
+
+
+def test_cg_kernels_on_a_mesh_larger_than_the_grid(case):
+    # 4,608 elements: more element groups (1,152) than blocks fit on an
+    # H100 at once, so blocks own several groups and re-read their operands
+    large = CylinderCase(nr=32, ntheta=144, order=6, dtype=torch.float32, device="cuda")
+    sem = large.sem
+    rng = np.random.default_rng(7)
+    rhs = make_projector(sem, sem.vmask)(torch.as_tensor(
+        rng.standard_normal(tuple(sem.bm.shape) + (2,)), dtype=torch.float32, device="cuda"))
+    k1 = FusedHelmholtzCG(sem, sem.vmask, maxiter=10, tol=1e-6)
+    assert rel(k1.solve(rhs, 0.0167, 100.0), k1.plain(rhs, 0.0167, 100.0)) < 1e-5
+    assert k1.grid < sem.nelem // 4
+    rhs_p = torch.as_tensor(rng.standard_normal(sem.p_shape), dtype=torch.float32, device="cuda")
+    for maxiter, bound in ((300, 1e-4), (16, 1e-3)):
+        k2 = FusedPressureCG(sem, maxiter=maxiter, tol=1e-6)
+        assert rel(k2.solve(rhs_p), k2.plain(rhs_p)) < bound
+        assert k2.grid < sem.nelem // 4
+
+
 # ---- K4: the fused local Helmholtz apply ------------------------------------
 CUBE = dict(reynolds=60.0, h=1.0, lx=5.0, ly=3.0, lz=3.0, cube_x=2.5,
             nx=5, ny=3, nz=3, order=3, delta=1.0, target_cfl=0.2)

@@ -105,21 +105,35 @@ def test_launch_checks_raise(sems):
     assert k1.launches == 0
 
 
+def kernel_gather(lists: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """The kernels' gather in their order: for every row of the padded
+    lists, the sum over its entries left to right, -1 pads skipped."""
+    out = np.zeros(lists.shape[0], u.dtype)
+    for q in range(lists.shape[1]):
+        k = lists[:, q]
+        out = out + np.where(k >= 0, u[np.maximum(k, 0)], 0.0)
+    return out
+
+
 def test_gather_tables_reproduce_dssum(sems):
     # the K1/K2 gather: each local node sums its global node's copies from
-    # the CSR table (gs_off, gs_idx), in table order
+    # its own padded list (increasing local index, -1 pads), left to right
     _, sem = sems
     c = FusedHelmholtzCG(sem, sem.vmask, maxiter=1, tol=1e-6)._gather_consts("cpu")
-    gid, off, idx = (c[k].numpy() for k in ("gid", "gs_off", "gs_idx"))
-    u = np.random.default_rng(3).standard_normal(gid.size)
-    got = np.array([u[idx[off[g]:off[g + 1]]].sum() for g in gid])
+    copies = c["copies"].numpy()
+    assert copies.dtype == np.int32 and copies.shape == (sem.gid_np.size, 4)
+    for row, g in zip(copies, sem.gid_np):  # exactly the copies, in order
+        own = row[row >= 0]
+        assert np.all(row[own.size:] == -1) and np.all(np.diff(own) > 0)
+        assert np.array_equal(own, np.flatnonzero(sem.gid_np == g))
+    u = np.random.default_rng(3).standard_normal(copies.shape[0])
     ref = sem.dssum(torch.as_tensor(u).reshape(sem.bm.shape)).reshape(-1).numpy()
-    assert np.allclose(got, ref, rtol=1e-12, atol=1e-12)
+    assert np.allclose(kernel_gather(copies, u), ref, rtol=1e-12, atol=1e-12)
 
 
 def test_pressure_kernel_constants(sems):
     # K2 folds the Q1 restriction with the Gauss->GLL lift into Kc, and sums
-    # vertices through a CSR vertex table: check both against the SEM ops
+    # vertices through padded vertex lists: check both against the SEM ops
     _, sem = sems
     k2 = FusedPressureCG(sem, maxiter=1, tol=1e-6)
     c = k2._device_consts("cpu")
@@ -130,16 +144,38 @@ def test_pressure_kernel_constants(sems):
     ref_rc = torch.einsum("cij,eij->ec", sem.pc_Jc, sem.lift_p(r)).double()
     # f32 factors and f32 reference arithmetic: a few f32 roundoffs
     assert torch.allclose(rc, ref_rc, rtol=1e-5, atol=1e-5)
-    off, idx = c["vtx_off"].numpy(), c["vtx_idx"].numpy()
     flat = rc.reshape(-1).numpy()
-    V = np.array([flat[idx[off[v]:off[v + 1]]].sum() for v in range(sem.pc_nc)])
+    V = kernel_gather(c["vtx"].numpy(), flat)
     ref_V = np.zeros(sem.pc_nc)
     np.add.at(ref_V, sem.pc_cid_np.reshape(-1), flat)
     assert np.allclose(V, ref_V, rtol=1e-12, atol=1e-12)
     for key, shape in {"pinv": (sem.nelem, 25, 25), "Acinv": (sem.pc_nc,) * 2,
-                       "vmask": (sem.nelem, 7, 7, 2), "Jg": (7, 5)}.items():
-        assert tuple(c[key].shape) == shape and c[key].dtype == torch.float32
-        assert c[key].is_contiguous()
+                       "vmask": (sem.nelem, 7, 7, 2), "Jg": (7, 5),
+                       "vtx": (sem.pc_nc, 4), "cid": (sem.nelem, 4)}.items():
+        assert tuple(c[key].shape) == shape and c[key].is_contiguous()
+        assert c[key].dtype == (torch.int32 if key in ("vtx", "cid") else torch.float32)
+
+
+def test_pressure_kernel_preconditioner(sems):
+    # K2's preconditioner from the operands it reads: each Gauss node's row
+    # of the block inverse, the corner residuals rc = Kc r, the vertex sums
+    # V over the padded lists, xc = Acinv V read at each element's corners
+    # (the rows a block computes for its own elements), prolonged by Kc^T;
+    # against the plain version's sem.pressure_precond_block
+    _, sem = sems
+    c = FusedPressureCG(sem, maxiter=1, tol=1e-6)._device_consts("cpu")
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(sem.p_shape),
+                        dtype=torch.float32)
+    E, m = sem.nelem, sem.npr ** 2
+    rf = r.double().reshape(E, m)
+    Kc = c["Kc"].double().reshape(4, m)
+    z = torch.einsum("etk,ek->et", c["pinv"].double(), rf)
+    V = kernel_gather(c["vtx"].numpy(), (rf @ Kc.T).reshape(-1).numpy())
+    rows = c["Acinv"].double()[c["cid"].long()]  # (E, 4, nc): the rows at the corners
+    xc = rows @ torch.as_tensor(V)  # (E, 4)
+    got = (z + xc @ Kc).reshape(sem.p_shape)
+    ref = sem.pressure_precond_block(r).double()
+    assert rel(ref.numpy(), got.numpy()) < 1e-5  # f32 factors, f32 reference
 
 
 def test_cuda_sources_and_flags():
