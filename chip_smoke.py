@@ -18,9 +18,13 @@ source, sm_90a, all at once) and drives:
 2. the 3-D mixed-precision path: checks K4 (the fused local Helmholtz
    apply) against its plain version at the cylinder's shape and at both of
    the cube's (the three-component velocity apply and the one-component
-   pressure apply), runs the 10-step mixed tangent matvec on the 1,472-element
-   order-6 cube through K4, checks it against K4's plain version and the
-   f64 'laplacian' matvec, runs 5 nonlinear mixed steps and times it.
+   pressure apply), and over d = 2, 3, n = 4..8 and C = 1, 2, 3 at one
+   element, at a count that leaves the last element group partial and at a
+   count larger than the persistent grid holds at once; runs the 10-step
+   mixed tangent matvec on the 1,472-element order-6 cube through K4
+   (counting its launches at the velocity and the pressure shape), checks it
+   against K4's plain version and the f64 'laplacian' matvec, runs 5
+   nonlinear mixed steps and times it.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every phase is fatal on failure.  Imports nothing
@@ -30,7 +34,8 @@ Output: one line per result, then a ``{"kernels": [...]}`` JSON line (each
 kernel's launches on its path, max abs error against its plain version,
 time, plain time, and the least time the card could take, ``bound_ms``;
 for K1 and K2 also ``per_iter_ms`` and ``phases``, the grid barriers the
-timed solve crossed), the card's name and power limit, and last
+timed solve crossed; K4 once per cube shape, with its ``shape``), the
+card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
 port's package beside this script.
@@ -137,6 +142,85 @@ def k4_flops(E: int, n: int, dim: int, C: int) -> float:
     (2-D 6, 3-D 15) and h1 K u + h2 bm u (4)."""
     per_node = 8 * n + 10 if dim == 2 else 12 * n + 19
     return float(E) * n ** dim * C * per_node
+
+
+def k4_bound(k4, u, h2: float, C) -> dict:
+    """Bound of one K4 apply: u read and out written once, the metrics and
+    D read once, bm only where h2 != 0 (the kernel skips it at h2 = 0)."""
+    fields = (u, u, *k4.metrics, k4.D) + ((k4.bm,) if h2 != 0 else ())
+    return roofline(nbytes(*fields), k4_flops(k4.nelem, k4.n, k4.ndim, C or 1))
+
+
+def k4_shapes(sem, cube, h1: float, h2: float):
+    """(label, SEM, components or None for no component axis, (h1, h2)) of
+    the shapes the two paths give K4: the cylinder's velocity (C = 2), the
+    cube's velocity (C = 3) and its pressure (one component, h1 = 1,
+    h2 = 0)."""
+    return (("cylinder", sem, 2, (h1, h2)),
+            ("cube velocity", cube.sem, 3, (cube.h / cube.reynolds, (11.0 / 6.0) / cube.dt)),
+            ("cube pressure", cube.sem, None, (1.0, 0.0)))
+
+
+def k4_fields(sem, nelem: int):
+    """The fields K4 reads from a SEM, tiled (or cut) to ``nelem`` elements:
+    a stand-in SEM for element counts that no small mesh has."""
+    import types
+
+    import torch
+
+    keys = (("g11", "g12", "g22") if sem.ndim == 2
+            else ("g11", "g22", "g33", "g12", "g13", "g23"))
+    reps = -(-nelem // sem.nelem)
+    tile = lambda t: torch.cat([t] * reps)[:nelem].contiguous()
+    return types.SimpleNamespace(n=sem.n, ndim=sem.ndim, nelem=nelem, D=sem.D,
+                                 bm=tile(sem.bm), **{k: tile(getattr(sem, k)) for k in keys})
+
+
+def check_k4_sweep(dev) -> float:
+    """Hold K4 against its plain version (rel < 1e-5) for d = 2, 3, n = 4..8
+    and C = 1, 2, 3 at three element counts each: one element, two groups
+    and one element (the last group partial), and one group more than the
+    grid holds, plus one element (blocks walk several groups).  Returns the
+    largest max abs error."""
+    import torch
+    from nekstab_next_tpu_torch.mesh import box_mesh_2d, box_mesh_3d
+    from nekstab_next_tpu_torch.ops.core import SEM
+    from nekstab_next_tpu_torch.ops.core3 import SEM3
+    from nekstab_next_tpu_torch.ops.fused_helmholtz import FusedHelmholtz, block_groups
+
+    rng = np.random.default_rng(11)
+    worst = 0.0
+    for dim in (2, 3):
+        for n in range(4, 9):
+            base = (SEM(box_mesh_2d(3, 3, order=n - 1, grading_x=1.3), dtype=torch.float32,
+                        device=dev) if dim == 2 else
+                    SEM3(box_mesh_3d(3, 2, 3, order=n - 1, periodic_z=True),
+                         dtype=torch.float32, device=dev))
+            for C in (1, 2, 3):
+                geo = FusedHelmholtz(k4_fields(base, 1)).geometry(C)
+                per, fit = geo["per_block"], geo["per_sm"] * geo["sms"]
+                rels, grids = [], []
+                for E in (1, 2 * per + 1, per * (fit + 1) + 1):
+                    k4 = FusedHelmholtz(k4_fields(base, E))
+                    shape = k4.node_shape + ((C,) if C > 1 else ())
+                    u = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                        device=dev)
+                    got, ref = k4.apply(u, 0.0167, 100.0), k4.plain(u, 0.0167, 100.0)
+                    torch.cuda.synchronize()
+                    r = rel(got, ref)
+                    worst = max(worst, float((got - ref).abs().max()))
+                    rels.append(r)
+                    grids.append(k4.grid)
+                    if not (r < 1e-5 and k4.launches == 1):
+                        fail(f"K4 sweep d={dim} n={n} C={C} E={E}: rel {r:.3e}, "
+                             f"launches {k4.launches}")
+                if len(block_groups(0, grids[-1], per * (fit + 1) + 1, per)) < 2:
+                    fail(f"K4 sweep d={dim} n={n} C={C}: no block walked several groups")
+                log(f"K4 sweep d={dim} n={n} C={C}: {per} elements x {geo['threads']} threads "
+                    f"a block, {geo['smem']} B shared, {geo['per_sm']} blocks an SM; "
+                    f"E = 1, {2 * per + 1}, {per * (fit + 1) + 1} on grids {grids}: rel "
+                    + ", ".join(f"{r:.2e}" for r in rels) + " (bound 1e-5)")
+    return worst
 
 
 def card_line() -> str:
@@ -474,10 +558,7 @@ def main() -> None:
     log(f"cube: {s3.nelem} elements, n={s3.n}, {cube.mesh.npoints * 3} velocity dof, "
         f"{s3.pc_nc} coarse vertices, dt={cube.dt:.6g}, set-up {time.perf_counter() - t0:.1f} s")
     k4_err, k4_in = [], {}
-    for label, ksem, C, hh in (
-            ("cylinder", sem, 2, (h1, h2)),
-            ("cube velocity", s3, 3, (cube.h / cube.reynolds, (11.0 / 6.0) / cube.dt)),
-            ("cube pressure", s3, None, (1.0, 0.0))):
+    for label, ksem, C, hh in k4_shapes(sem, cube, h1, h2):
         k4 = FusedHelmholtz(ksem)
         u = torch.as_tensor(rng.standard_normal(k4.node_shape + ((C,) if C else ())),
                             dtype=torch.float32, device=dev)
@@ -486,12 +567,16 @@ def main() -> None:
         r4 = rel(got, ref)
         k4_err.append(float((got - ref).abs().max()))
         k4_in[label] = (k4, u, hh, C)
+        geo = k4.geometry(C or 1)
         log(f"K4 fused_helmholtz vs plain at the {label} shape {tuple(u.shape)}, "
-            f"h1={hh[0]:.6g}, h2={hh[1]:.6g}: rel {r4:.3e} (bound 1e-5), launches {k4.launches}")
+            f"h1={hh[0]:.6g}, h2={hh[1]:.6g}: rel {r4:.3e} (bound 1e-5), launches {k4.launches}, "
+            f"digest {digest(got)}, grid {geo['grid']} blocks of {geo['per_block']} elements "
+            f"({geo['per_sm']} an SM)")
         if k4.launches != 1:
             fail(f"K4 at the {label} shape launched {k4.launches} times, expected 1")
         if not (r4 < 1e-5):
             fail(f"K4 disagrees with its plain version at the {label} shape: rel {r4:.3e}")
+    k4_err.append(check_k4_sweep(dev))
     err["fused_helmholtz"] = max(k4_err)
 
     # ---- 9. the cube's 10-step mixed tangent matvec through K4 -----------
@@ -503,11 +588,11 @@ def main() -> None:
     q3 = s3.vmask * torch.as_tensor(rng.standard_normal(tuple(base3.shape)),
                                     dtype=torch.float64, device=dev)
     k4m = nsm.mixed.fused
-    calls = [0]
+    calls = {"cube velocity": 0, "cube pressure": 0}
     helm32 = nsm.mixed.helmholtz32
 
     def counting_helmholtz32(u, a, b):
-        calls[0] += 1
+        calls["cube velocity" if u.dim() == 5 else "cube pressure"] += 1
         return helm32(u, a, b)
 
     nsm.mixed.helmholtz32 = counting_helmholtz32
@@ -519,17 +604,16 @@ def main() -> None:
     launches3 = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches,
                  "fused_helmholtz": k4m.launches}
     log(f"cube matvec mixed (K4): first call {t_first3:.2f} s, launches {launches3}, "
-        f"helmholtz32 calls {calls[0]}")
+        f"helmholtz32 calls by shape {calls}")
     nsm.mixed.helmholtz32 = helm32
     if tuple(out3.shape) != tuple(q3.shape) or out3.dtype != torch.float64:
         fail(f"cube matvec output has shape {tuple(out3.shape)}, {out3.dtype}")
     if not bool(torch.isfinite(out3).all()):
         fail("cube matvec output is not finite")
-    if not (k4m.launches > 0 and k4m.launches == calls[0]):
-        fail(f"K4 launched {k4m.launches} times for {calls[0]} helmholtz32 calls")
+    if not (min(calls.values()) > 0 and k4m.launches == sum(calls.values())):
+        fail(f"K4 launched {k4m.launches} times for helmholtz32 calls {calls}")
     if launches3["fused_helmholtz_cg"] or launches3["fused_pressure_cg"]:
         fail(f"the cube path launched K1/K2: {launches3}")
-    launches["fused_helmholtz"] = k4m.launches
     with plain_k4(nsm):
         out3_p = op3.matvec(q3)
     r3 = rel(out3, out3_p)
@@ -570,23 +654,30 @@ def main() -> None:
         ms_warm = kernel_ms(lambda: k4.apply(u, *hh), 200)
         ms_cold = kernel_ms(lambda: k4.apply(u, *hh), 50, cold=True)
         ms_plain = cuda_ms(lambda: k4.plain(u, *hh), 50)
-        b4 = roofline(nbytes(u, u, k4.bm, *k4.metrics, k4.D),
-                   k4_flops(k4.nelem, k4.n, k4.ndim, C or 1))
-        k4_ms[label] = (ms_cold, ms_plain, b4)
+        b4 = k4_bound(k4, u, hh[1], C)
+        k4_ms[label] = (ms_cold, ms_plain, b4, ms_warm)
         log(f"timing {tag} one K4 apply at the {label} shape: kernel {ms_cold:.4f} ms "
             f"(L2 flushed; {ms_warm:.4f} ms back to back), plain {ms_plain:.4f} ms, "
-            f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']})")
-    bounds["fused_helmholtz"] = k4_ms["cube velocity"][2]
-    solve_ms["fused_helmholtz"] = k4_ms["cube velocity"][:2]
+            f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}), share "
+            f"{100 * b4['bound_ms'] / ms_cold:.1f} % flushed, "
+            f"{100 * b4['bound_ms'] / ms_warm:.1f} % back to back")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
          "launches": launches[name], "max_abs_err": err[name],
          "ms": solve_ms[name][0], "plain_ms": solve_ms[name][1],
          **bounds[name], "library_ms": None,
-         **({"per_iter_ms": sweep[name]["per_iter_ms"], "phases": phases[name]}
-            if name in sweep else {})}
-        for name in ("fused_helmholtz_cg", "fused_pressure_cg", "fused_helmholtz")
+         "per_iter_ms": sweep[name]["per_iter_ms"], "phases": phases[name]}
+        for name in ("fused_helmholtz_cg", "fused_pressure_cg")
+    ] + [
+        # K4 once per cube shape: its launches on the cube matvec at that shape
+        {"name": name, "shape": label, "route": "cuda", "source": SOURCE["fused_helmholtz"],
+         "replaces": TPU_KERNEL["fused_helmholtz"], "launches": calls[label],
+         "max_abs_err": err["fused_helmholtz"], "ms": k4_ms[label][0],
+         "plain_ms": k4_ms[label][1], **k4_ms[label][2], "library_ms": None,
+         "back_to_back_ms": k4_ms[label][3]}
+        for name, label in (("fused_helmholtz", "cube velocity"),
+                            ("fused_helmholtz/pressure", "cube pressure"))
     ]
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

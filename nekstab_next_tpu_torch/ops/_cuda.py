@@ -33,8 +33,8 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argument types of the C entry points, in order; ``nsk_<stem>`` is defined
-# by ``csrc/<stem>.cu``
+# argument types of the C entry points, in order; ``nsk_<stem>`` and
+# ``nsk_<stem>_<query>`` are defined by ``csrc/<stem>.cu``
 _SIGNATURES = {
     "nsk_fused_helmholtz_cg": (
         [_I] * 5 + [_F] * 3        # device, n, E, C, maxiter; tol, h1, h2
@@ -52,8 +52,9 @@ _SIGNATURES = {
     "nsk_fused_helmholtz": (
         [_I] * 5 + [_F] * 2        # device, dim, n, E, C; h1, h2
         + [_P] * 2                 # u, out
-        + [_P] * 8 + [_P]          # D, g0..g5, bm; stream
+        + [_P] * 8 + [_P]          # D (host), g0..g5, bm; stream
     ),
+    "nsk_fused_helmholtz_geometry": [_I] * 5 + [_P],  # device, dim, n, E, C; info
 }
 
 
@@ -68,7 +69,7 @@ class KernelLibrary:
         self.build_log = build_log
         self._fns: Dict[str, object] = {}
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(libs[name[len("nsk_"):]], name)
+            fn = getattr(libs[_source_of(name, libs)], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             self._fns[name] = fn
@@ -78,6 +79,13 @@ class KernelLibrary:
             return self.__dict__["_fns"][name]
         except KeyError:
             raise AttributeError(name) from None
+
+
+def _source_of(name: str, stems) -> str:
+    """The source that defines a C entry point: the longest stem with
+    ``name == nsk_<stem>`` or ``name == nsk_<stem>_<anything>``."""
+    tail = name[len("nsk_"):]
+    return max((s for s in stems if tail == s or tail.startswith(s + "_")), key=len)
 
 
 _lock = threading.Lock()

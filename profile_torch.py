@@ -7,7 +7,8 @@ through K1 and K2, then the 10-step mixed-precision cube matvec through K4.  Aft
 warm-up matvec, one matvec runs under ``torch.profiler`` (CPU and CUDA
 activities).  Prints the wall time, the device-busy time (the union of the
 kernels' intervals) and the idle share, the number of device kernels, the
-device time by kernel name, and the host ops with the most CPU time, each
+device time by kernel name (and the port's own kernels, ``nsk`` in their
+names, each with its launches), and the host ops with the most CPU time, each
 line tagged with the card's name and power limit.  Needs a CUDA device;
 imports nothing of JAX.
 """
@@ -96,6 +97,11 @@ def profile(path: str, tag: str) -> None:
         print(f"    {us / 1e3:9.2f} ms  {100 * us / 1e6 / busy:5.1f} %  x{count:<6d} {name[:90]}")
     cpu = [a for a in prof.key_averages() if a.self_cpu_time_total > 0]
     total_cpu = sum(a.self_cpu_time_total for a in cpu)
+    print(f"[{tag}] {path}: device time of the port's own kernels")
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        if "nsk" in name:
+            print(f"    {us / 1e3:9.2f} ms  {100 * us / 1e6 / busy:5.1f} %  x{count:<6d} "
+                  f"{us / count:8.2f} us each  {name[:90]}")
     print(f"[{tag}] {path}: host self time by op (top 8 of {total_cpu / 1e3:.1f} ms)")
     for a in sorted(cpu, key=lambda a: -a.self_cpu_time_total)[:8]:
         print(f"    {a.self_cpu_time_total / 1e3:9.2f} ms  x{a.count:<6d} {a.key[:80]}")

@@ -6,6 +6,8 @@ without it:  ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports jax).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -176,6 +178,73 @@ def test_fused_helmholtz_kernel_matches_plain(case, dim, order, C):
     assert k4.launches == 1
     # f32 in another summation order (sum-factorised vs einsum)
     assert rel(got, ref) < 1e-5
+
+
+def _k4_fields(sem, nelem):
+    """The fields K4 reads from a SEM, tiled to ``nelem`` elements."""
+    keys = (("g11", "g12", "g22") if sem.ndim == 2
+            else ("g11", "g22", "g33", "g12", "g13", "g23"))
+    reps = -(-nelem // sem.nelem)
+    tile = lambda t: torch.cat([t] * reps)[:nelem].contiguous()
+    return types.SimpleNamespace(n=sem.n, ndim=sem.ndim, nelem=nelem, D=sem.D,
+                                 bm=tile(sem.bm), **{k: tile(getattr(sem, k)) for k in keys})
+
+
+def _k4_count(sem, C, count):
+    """(element count, elements per block, blocks that fit) for one element,
+    a partial last group, or more groups than the persistent grid holds."""
+    geo = FusedHelmholtz(sem).geometry(C)
+    per, fit = geo["per_block"], geo["per_sm"] * geo["sms"]
+    return {"one": 1, "tail": 2 * per + 1, "beyond_grid": per * (fit + 1) + 1}[count], per, fit
+
+
+@pytest.mark.parametrize("count", ["one", "tail", "beyond_grid"])
+@pytest.mark.parametrize("dim,order,C", [
+    (3, 6, 3), (3, 6, 1), (3, 3, 2), (3, 7, 1), (2, 6, 2), (2, 3, 3),
+])
+def test_fused_helmholtz_kernel_at_element_counts(case, dim, order, C, count):
+    # a block owns a group of elements and walks the groups with a stride
+    # of the grid: one element, a partial last group, and blocks that own
+    # several groups
+    sem = _k4_case(dim, order)
+    E, per, fit = _k4_count(sem, C, count)
+    k4 = FusedHelmholtz(_k4_fields(sem, E))
+    u = torch.as_tensor(np.random.default_rng(E).standard_normal(
+        k4.node_shape + ((C,) if C > 1 else ())), dtype=torch.float32, device="cuda")
+    for h2 in (100.0, 0.0):  # h2 = 0: the kernel does not read bm
+        got, ref = k4.apply(u, 0.0167, h2), k4.plain(u, 0.0167, h2)
+        torch.cuda.synchronize()
+        assert rel(got, ref) < 1e-5
+    assert k4.launches == 2
+    if count == "beyond_grid":
+        assert k4.grid == fit < -(-E // per)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_fused_helmholtz_kernel_takes_unaligned_tensors(case, offset):
+    # u at a storage offset of 1..3 floats: the copies and stores that do
+    # not share u's 16-byte phase take their 4-byte path
+    sem = _k4_case(3, 6)
+    E, _, _ = _k4_count(sem, 3, "beyond_grid")
+    k4 = FusedHelmholtz(_k4_fields(sem, E))
+    n = int(np.prod(k4.node_shape)) * 3
+    flat = torch.as_tensor(np.random.default_rng(offset).standard_normal(n + offset),
+                           dtype=torch.float32, device="cuda")
+    u = flat[offset:].view(k4.node_shape + (3,))
+    assert u.is_contiguous() and u.data_ptr() % 16 != 0
+    got, ref = k4.apply(u, 0.0167, 100.0), k4.plain(u, 0.0167, 100.0)
+    torch.cuda.synchronize()
+    assert rel(got, ref) < 1e-5
+
+
+def test_fused_helmholtz_kernel_is_bit_reproducible(case):
+    # no atomics, a fixed order of every sum: two launches give equal bits
+    sem = _k4_case(3, 6)
+    E, _, _ = _k4_count(sem, 3, "beyond_grid")
+    k4 = FusedHelmholtz(_k4_fields(sem, E))
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(k4.node_shape + (3,)),
+                        dtype=torch.float32, device="cuda")
+    assert torch.equal(k4.apply(u, 0.0167, 100.0), k4.apply(u, 0.0167, 100.0))
 
 
 def test_fused_helmholtz_kernel_rejects_what_it_cannot_take(case):

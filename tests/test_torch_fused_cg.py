@@ -7,6 +7,8 @@ test_fused_cg.py, on the same 32-element cylinder mesh and f32 factors.  The
 kernels themselves run on a GPU only (tests/test_torch_cuda.py).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -184,7 +186,10 @@ def test_cuda_sources_and_flags():
                                     "fused_pressure_cg.cu"]
     assert [f.name for f in cuh] == ["sem_device.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
-    for f in cu:  # one C entry point per kernel, as ctypes binds them
+    stems = [f.stem for f in cu]
+    for f in cu:  # the C entry points are exactly those ctypes binds
         src = f.read_text()
-        assert src.count('extern "C" int nsk_') == 1
+        bound = {n for n in _cuda._SIGNATURES if _cuda._source_of(n, stems) == f.stem}
+        assert set(re.findall(r'extern "C" int (nsk_\w+)\(', src)) == bound
+        assert f"nsk_{f.stem}" in bound  # and nsk_<stem> launches its kernel
         assert "cudaLaunchCooperativeKernel" not in src  # via sem_device.cuh
