@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU (Hopper).
+"""Drive the PyTorch port's paths once on one NVIDIA GPU (Hopper).
 
     python3 chip_smoke.py
 
@@ -24,7 +24,19 @@ source, sm_90a, all at once) and drives:
    mixed tangent matvec on the 1,472-element order-6 cube through K4
    (counting its launches at the velocity and the pressure shape), checks it
    against K4's plain version and the f64 'laplacian' matvec, runs 5
-   nonlinear mixed steps and times it.
+   nonlinear mixed steps and times it;
+3. the Krylov layer and the cylinder stability pipeline on the flagship
+   mesh, against the full-preset artifacts of ``cylinder_out_full/`` (read
+   with the port's ``load_field``): Cd and the wavemaker of the saved
+   fields; the f64 adjoint identity over 10 steps; the 50-step f32 rmatvec
+   through K1 and K2 (the launches of its backward counted), against the
+   plain versions and the f64 rmatvec; the saved modes' eigen-residuals
+   under the f32 operator at the full horizon (540 steps); one Newton
+   iteration and direct and adjoint ``linear_stability_analysis`` (50
+   steps a matvec, k_dim 24, one restart) with the wavemaker and base-flow
+   sensitivity of their modes; then the rmatvec/matvec time ratio, the
+   f64 step at the example's tolerances, ``ortho_insert`` at k = 24 and
+   128, and the projected time of each preset's eigen stages.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every phase is fatal on failure.  Imports nothing
@@ -33,8 +45,9 @@ of JAX.
 Output: one line per result, then a ``{"kernels": [...]}`` JSON line (each
 kernel's launches on its path, max abs error against its plain version,
 time, plain time, and the least time the card could take, ``bound_ms``;
-for K1 and K2 also ``per_iter_ms`` and ``phases``, the grid barriers the
-timed solve crossed; K4 once per cube shape, with its ``shape``), the
+for K1 and K2 also ``per_iter_ms``, ``phases``, the grid barriers the
+timed solve crossed, and ``rmatvec_launches``, the launches in one
+rmatvec's backward; K4 once per cube shape, with its ``shape``), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
@@ -46,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -86,6 +100,20 @@ CUBE_TIGHT = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=2000,
                   velocity_maxiter=500)
 CUBE_NSTEPS = 10
 CUBE_REPS = 2
+# the Krylov layer and the cylinder pipeline: the full preset of
+# examples/cylinder_stability.py on the flagship mesh (its artifacts in
+# cylinder_out_full/, its horizon 1.0), depth cut: 10-step f64 identity,
+# 50-step f32 matvecs for the stability API, one Newton iteration, one
+# Krylov-Schur restart
+ARTIFACTS = ("cylinder_out_full", "cylinder_out2")  # full and quick presets
+QUICK = dict(reynolds=60.0, nr=6, ntheta=16, order=6, outer_radius=20.0)
+HORIZON = 1.0
+CAPS_12 = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=2000,
+               velocity_maxiter=500, pressure_precond="block")
+EXAMPLE_F64 = dict(pressure_precond="block")  # 1e-8 / 1e-9, the example's f64 solver
+IDENTITY_STEPS = 10
+EIGS = dict(k_dim=24, nev=2, max_restarts=1)
+ORTHO_K = (24, 128)
 # published H100 SXM peaks: device memory and float32 outside the tensor
 # cores
 HBM_BYTES_PER_S = 3.35e12
@@ -403,6 +431,242 @@ def cg_sweep(sem, rhs_v, rhs_p, h1: float, h2: float, tag: str) -> dict:
     return out
 
 
+def energy(sem, x) -> float:
+    """Sponge-masked energy norm of a velocity field or an (re, im) pair."""
+    parts = x if isinstance(x, tuple) else (x,)
+    return float(sum(sem.inner(p[..., d], p[..., d]) for p in parts for d in range(2))) ** 0.5
+
+
+def eigen_residual(sem, apply, re, im, lam, T: float) -> float:
+    """||A v - mu v|| / ||v|| for v = re + i im, mu = exp(lam T), A real."""
+    mu = np.exp(complex(*lam) * T)
+    Ar, Ai = apply(re), apply(im)
+    r = (Ar - mu.real * re + mu.imag * im, Ai - mu.real * im - mu.imag * re)
+    return energy(sem, r) / energy(sem, (re, im))
+
+
+def pipeline_phase(tag: str, dev) -> dict:
+    """The Krylov layer and the cylinder pipeline on the flagship mesh
+    (768 elements), against the full-preset artifacts; fails on any check.
+    Returns the numbers the kernels line and the projections need."""
+    import torch
+    from nekstab_next_tpu_torch.algorithms import (
+        linear_stability_analysis, newton_krylov, velocity_space)
+    from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
+    from nekstab_next_tpu_torch.config import NewtonConfig, SolverConfig
+    from nekstab_next_tpu_torch.io import load_field
+    from nekstab_next_tpu_torch.krylov import Basis
+    from nekstab_next_tpu_torch.mesh.mesh import BoundaryCondition as BC
+    from nekstab_next_tpu_torch.postproc import bf_sensitivity, wave_maker
+    from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+    from nekstab_next_tpu_torch.utils import (
+        boundary_quadrature, surface_force_and_torque, velocity_noise)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    art = os.path.join(root, ARTIFACTS[0])
+    with open(os.path.join(art, "summary.json")) as f:
+        summary = json.load(f)
+    load = lambda name: load_field(os.path.join(art, f"{name}_cyl_00001.npz"))
+    # the example's time step: the horizon in a whole number of steps
+    case64 = make_case(torch.float64, CAPS_12, fused=False)
+    nsteps_full = max(int(round(HORIZON / case64.dt)), 1)
+    dt = case64.dt = HORIZON / nsteps_full
+    s64 = case64.sem
+
+    def case_at(dtype, caps, fused):
+        return CylinderCase(**FLAGSHIP, dtype=dtype, dt=dt, device=dev,
+                            solver=SolverConfig(**caps, fused_solves=fused))
+
+    # ---- P1. the artifacts: Cd and the wavemaker ------------------------
+    bf = load("BF")
+    if bf.u.shape != tuple(s64.bm.shape) + (2,) or bf.p.shape != tuple(s64.p_shape):
+        fail(f"artifact shapes {bf.u.shape}, {bf.p.shape} against the port mesh's "
+             f"{tuple(s64.bm.shape) + (2,)}, {tuple(s64.p_shape)}")
+    base64 = torch.as_tensor(bf.u, device=dev)
+    fx = surface_force_and_torque(s64, boundary_quadrature(case64.mesh, tags=(BC.WALL,)),
+                                  base64, torch.as_tensor(bf.p, device=dev),
+                                  viscosity=1.0 / summary["reynolds"])[0]
+    cd = 2.0 * float(fx)
+    r_cd = abs(cd - summary["cd"]) / summary["cd"]
+    log(f"pipeline: {nsteps_full} steps a full-horizon matvec (dt {dt:.6g}); base flow "
+        f"Cd {cd:.15g} vs summary.json {summary['cd']:.15g}: rel {r_cd:.3e} (bound 1e-9)")
+    if not (r_cd <= 1e-9):
+        fail(f"Cd of the loaded base flow {cd} against summary.json: rel {r_cd:.3e}")
+    modes = {k: torch.as_tensor(load(k).u, device=dev) for k in ("dRe", "dIm", "aRe", "aIm")}
+    wm = wave_maker(s64, modes["dRe"], modes["dIm"], modes["aRe"], modes["aIm"])
+    saved = torch.as_tensor(load("wm").u[..., 0], device=dev)
+    r_wm = rel(wm, saved)
+    ix = int(torch.argmax(wm))
+    peak = (float(wm.max()), float(case64.mesh.x.reshape(-1)[ix]),
+            float(case64.mesh.y.reshape(-1)[ix]))
+    ref_peak = summary["wavemaker_peak"]
+    log(f"pipeline: wavemaker of the loaded modes vs wm_cyl_00001.npz: rel {r_wm:.3e} "
+        f"(bound 1e-10); peak {peak[0]:.15g} at ({peak[1]:.6f}, {peak[2]:.6f}), "
+        f"summary.json {ref_peak['value']:.15g} at ({ref_peak['x']:.6f}, {ref_peak['y']:.6f})")
+    if not (r_wm <= 1e-10 and ix == int(torch.argmax(saved))
+            and abs(peak[0] - ref_peak["value"]) <= 1e-10 * ref_peak["value"]
+            and (peak[1], peak[2]) == (ref_peak["x"], ref_peak["y"])):
+        fail(f"wavemaker against the artifact: rel {r_wm:.3e}, peak {peak}")
+
+    # ---- P2. f64 adjoint identity, 10 steps, solves at 1e-12 -------------
+    op64 = LinearizedOperator(case64.make_ns(), base64, nsteps=IDENTITY_STEPS)
+    outside = (s64.bms > 0)[..., None].to(s64.dtype)  # M* projects out the sponge
+    q, w = (outside * velocity_noise(s64, seed=sd) for sd in (1, 2))
+    a = float(sum(s64.inner(op64.matvec(q)[..., d], w[..., d]) for d in range(2)))
+    b = float(sum(s64.inner(q[..., d], op64.rmatvec(w)[..., d]) for d in range(2)))
+    r_id = abs(a - b) / abs(a)
+    log(f"pipeline: f64 adjoint identity about the loaded base ({IDENTITY_STEPS} steps, "
+        f"solves at 1e-12): <Mq,w> {a:.15e}, <q,M*w> {b:.15e}, rel {r_id:.3e} (bound 1e-11)")
+    if not (r_id <= 1e-11):
+        fail(f"f64 adjoint identity: rel {r_id:.3e}")
+
+    # ---- P3. the f32 rmatvec through K1/K2 --------------------------------
+    case32 = case_at(torch.float32, CAPS_F32, True)
+    s32 = case32.sem
+    ns32 = case32.make_ns()
+    fv, fp = ns32.fused_v, ns32.fused_p
+    base32 = base64.float()
+    op32 = LinearizedOperator(ns32, base32, nsteps=NSTEPS)
+    # a smooth input, as the matvec's (bench.py's): capped solves on noise
+    # stop far from the converged operator
+    w32 = modes["aRe"].float()
+    fv.launches = fp.launches = 0
+    op32.rmatvec(w32)
+    torch.cuda.synchronize()
+    first = (fv.launches, fp.launches)
+    fv.launches = fp.launches = 0
+    out_k = op32.rmatvec(w32)
+    torch.cuda.synchronize()
+    backward = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+    log(f"pipeline: f32 rmatvec ({NSTEPS} steps, caps 16/10) launches: first call "
+        f"K1 {first[0]}, K2 {first[1]} (the vjp's forward at the zero history, "
+        f"{first[0] - backward['fused_helmholtz_cg']} each, plus the backward); "
+        f"later calls, backward only: {backward}")
+    if backward != {"fused_helmholtz_cg": NSTEPS, "fused_pressure_cg": NSTEPS}:
+        fail(f"expected {NSTEPS} K1 and K2 launches in the rmatvec's backward, got {backward}")
+    if not bool(torch.isfinite(out_k).all()) or out_k.dtype != torch.float32:
+        fail("f32 rmatvec output is not finite f32")
+    with plain_solves(ns32):
+        out_p = op32.rmatvec(w32)
+    r_p = rel(out_k, out_p)
+    op64t = LinearizedOperator(case_at(torch.float64, CAPS_TIGHT, False).make_ns(),
+                               base64, nsteps=NSTEPS)
+    out_64 = op64t.rmatvec(w32.double())
+    drift = rel(out_k, out_64)
+    log(f"pipeline: f32 rmatvec kernels vs plain versions: rel {r_p:.3e} (bound 1e-3); vs f64 "
+        f"rmatvec at 1e-10: drift {drift:.3e} (bound 1e-3); digests kernels {digest(out_k)}, "
+        f"plain {digest(out_p)}, f64 {digest(out_64)}")
+    if not (r_p < 1e-3 and drift < 1e-3):
+        fail(f"f32 rmatvec: vs plain {r_p:.3e}, drift {drift:.3e}")
+
+    # ---- P4. eigen-residuals of the loaded modes at the full horizon -----
+    op_full = LinearizedOperator(ns32, base32, nsteps=nsteps_full)
+    f32 = {k: v.float() for k, v in modes.items()}
+    res_d = eigen_residual(s32, op_full.matvec, f32["dRe"], f32["dIm"],
+                           load("dRe").meta["eigenvalue"], op_full.T)
+    res_a = eigen_residual(s32, op_full.rmatvec, f32["aRe"], f32["aIm"],
+                           load("aRe").meta["eigenvalue"], op_full.T)
+    log(f"pipeline: eigen-residual ||Mv - mu v||/||v|| of the loaded modes under the f32 "
+        f"kernels' operator ({nsteps_full} steps): direct {res_d:.3e} (bound 1e-2), adjoint "
+        f"under rmatvec {res_a:.3e} (reported, not gated: the artifacts' adjoint sigma is "
+        f"{summary['adjoint']['sigma']:.6f} against direct {summary['direct']['sigma']:.6f})")
+    if not (res_d <= 1e-2):
+        fail(f"direct-mode eigen-residual {res_d:.3e} under the port's f32 operator")
+
+    # ---- P5. the stability API at full width, depth cut -------------------
+    # (the path's run: every launch count set to 0 just before, read after)
+    fv.launches = fp.launches = 0
+    nres = newton_krylov(ns32, base32, horizon=NSTEPS * dt, nsteps=NSTEPS,
+                         cfg=NewtonConfig(max_iter=1, gmres_restarts=1), k_dim=8)
+    F = ns32.propagator(nres.u, NSTEPS, dt=dt) - nres.u
+    res_after = float(sum(s32.inner(F[..., d], F[..., d], masked=False) for d in range(2))) ** 0.5
+    log(f"pipeline: one newton_krylov iteration (f32 kernels, {NSTEPS} steps, k_dim 8): "
+        f"residual {nres.history[0][1]:.4e} before, {res_after:.4e} after, "
+        f"{nres.n_matvecs} matvecs")
+    space = velocity_space(s32)
+    results = {}
+    for mode in ("direct", "adjoint"):
+        t0 = time.perf_counter()
+        r = linear_stability_analysis(ns32, base32, horizon=NSTEPS * dt, nsteps=NSTEPS,
+                                      mode=mode, **EIGS)
+        torch.cuda.synchronize()
+        audit = r.eigresult.orthonormality_audit(space)
+        results[mode] = r
+        log(f"pipeline: linear_stability_analysis {mode} (f32, {NSTEPS} steps, k_dim "
+            f"{EIGS['k_dim']}, {EIGS['max_restarts']} restart): lambda0 {r.lam[0]:.6f}, "
+            f"lambda1 {r.lam[1]:.6f}, residuals {r.residuals[0]:.2e} {r.residuals[1]:.2e}, "
+            f"{r.n_matvecs} matvecs in {time.perf_counter() - t0:.1f} s, orthonormality "
+            f"audit {audit:.2e} (bound 1e-5)")
+        if not (np.all(np.isfinite(r.lam[:2])) and audit <= 1e-5):
+            fail(f"stability analysis {mode}: lambda {r.lam[:2]}, audit {audit:.2e}")
+    wm32 = wave_maker(s32, *results["direct"].modes[0], *results["adjoint"].modes[0])
+    sens = bf_sensitivity(s32, *results["direct"].modes[0], *results["adjoint"].modes[0])
+    torch.cuda.synchronize()
+    path = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+    finite = bool(torch.isfinite(wm32).all()) and all(bool(torch.isfinite(v).all())
+                                                      for v in sens.values())
+    log(f"pipeline: wave_maker and bf_sensitivity of the result: finite {finite}; "
+        f"kernel launches on the pipeline's run: {path}")
+    if not finite:
+        fail("wavemaker or base-flow sensitivity of the stability result is not finite")
+    if min(path.values()) == 0:
+        fail(f"the pipeline's run launched no K1 or K2: {path}")
+
+    # ---- P6. times -----------------------------------------------------
+    ms = {}
+
+    def chained(fn, x0):
+        state = {"x": x0}
+
+        def run():
+            state["x"] = fn(state["x"])
+        return run
+
+    ms["f32 matvec"] = cuda_ms(chained(op32.matvec, w32), REPS)
+    ms["f32 rmatvec"] = cuda_ms(chained(op32.rmatvec, w32), REPS)
+    ratio = ms["f32 rmatvec"] / ms["f32 matvec"]
+    log(f"timing {tag} pipeline: f32 ({NSTEPS} steps, caps 16/10) matvec "
+        f"{ms['f32 matvec']:.2f} ms, rmatvec through the kernels {ms['f32 rmatvec']:.2f} ms, "
+        f"ratio {ratio:.3f}")
+    steps = {}
+    for label, geometry in (("full", FLAGSHIP), ("quick", QUICK)):
+        c = CylinderCase(**geometry, device=dev, solver=SolverConfig(**EXAMPLE_F64))
+        n = max(int(round(HORIZON / c.dt)), 1)
+        c.dt = HORIZON / n
+        ns = c.make_ns()
+        st = {"s": ns.make_state(base64 if label == "full" else c.uniform_flow())}
+
+        def step():
+            st["s"] = ns.step(st["s"])
+        steps[label] = (n, cuda_ms(step, 20))
+        log(f"timing {tag} pipeline: f64 step at the example's tolerances (1e-8/1e-9, 'block') "
+            f"on the {label} preset's mesh ({c.mesh.nelem} elements, {n} steps a matvec): "
+            f"{steps[label][1]:.2f} ms")
+    for k in ORTHO_K:
+        basis = Basis(space, base64, capacity=k + 1)
+        basis.Q[:k] = torch.as_tensor(np.random.default_rng(k).standard_normal(
+            (k,) + tuple(base64.shape)), device=dev)
+        wk = velocity_noise(s64, seed=k)
+        ms[f"ortho {k}"] = cuda_ms(lambda: basis.ortho_insert(wk, k - 1), 10)
+        log(f"timing {tag} pipeline: one ortho_insert at k = {k} (f64, "
+            f"{base64.numel()} dof, two CGS passes): {ms[f'ortho {k}']:.3f} ms")
+    # projected time of the eigen stages (direct + adjoint matvecs of each
+    # summary.json; Newton's matvecs are not recorded there): steps a
+    # matvec x matvecs x ms a step, the adjoint's times the rmatvec ratio
+    for label, d in (("full", ARTIFACTS[0]), ("quick", ARTIFACTS[1])):
+        with open(os.path.join(root, d, "summary.json")) as f:
+            sm = json.load(f)
+        n, t64 = steps[label]
+        nd, na = sm["direct"]["n_matvecs"], sm["adjoint"]["n_matvecs"]
+        per_f32 = ms["f32 matvec"] / NSTEPS
+        p64 = n * (nd + na * ratio) * t64 / 3.6e6
+        p32 = n * (nd + na * ratio) * per_f32 / 3.6e6
+        log(f"projection {tag} pipeline: {label} preset eigen stages ({nd} + {na} matvecs "
+            f"from {d}/summary.json, {n} steps each): f64 at the example's tolerances "
+            f"{p64:.2f} h, f32 kernels (caps 16/10, flagship per-step time) {p32:.2f} h")
+    return {"rmatvec_launches": backward, "path_launches": path, "ms": ms, "ratio": ratio}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device -----------------------------------------------------
@@ -662,12 +926,16 @@ def main() -> None:
             f"{100 * b4['bound_ms'] / ms_cold:.1f} % flushed, "
             f"{100 * b4['bound_ms'] / ms_warm:.1f} % back to back")
 
+    # ==== the Krylov layer and the cylinder pipeline (K1, K2 again) ======
+    pipe = pipeline_phase(tag, dev)
+
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
          "launches": launches[name], "max_abs_err": err[name],
          "ms": solve_ms[name][0], "plain_ms": solve_ms[name][1],
          **bounds[name], "library_ms": None,
-         "per_iter_ms": sweep[name]["per_iter_ms"], "phases": phases[name]}
+         "per_iter_ms": sweep[name]["per_iter_ms"], "phases": phases[name],
+         "rmatvec_launches": pipe["rmatvec_launches"][name]}
         for name in ("fused_helmholtz_cg", "fused_pressure_cg")
     ] + [
         # K4 once per cube shape: its launches on the cube matvec at that shape

@@ -1,6 +1,6 @@
-"""Solver configuration — the same frozen dataclass as
-``nekstab_next_tpu/config.py`` ``SolverConfig``, field for field, so one
-config built for either package builds the other.
+"""Solver and Newton configuration — the same frozen dataclasses as
+``nekstab_next_tpu/config.py`` ``SolverConfig`` and ``NewtonConfig``, field
+for field, so one config built for either package builds the other.
 
 The port implements a subset of the options.  Where the JAX package quietly
 falls back to another path, the port raises where it reads an option it does
@@ -49,3 +49,18 @@ class SolverConfig:
     mixed_ir_cycles: int = 2  # mixed-precision path (not ported)
     cg_fixed_iters: bool = False  # TPU While-trip workaround (not ported)
     lanes_layout: bool = False  # TPU lanes layout (not ported)
+
+
+@dataclasses.dataclass(frozen=True)
+class NewtonConfig:
+    """Newton-Krylov knobs (field meanings as in the JAX package's
+    ``NewtonConfig``; ``finite_difference`` is not ported and raises in
+    ``algorithms/newton.py``)."""
+
+    max_iter: int = 100
+    tol: float = 1e-10
+    gmres_restarts: int = 100
+    dynamic_tol: bool = True  # Eisenstat-Walker forcing of the GMRES tolerance
+    finite_difference: bool = False  # not ported
+    fd_order: int = 2
+    fd_epsilon: float = 1e-6

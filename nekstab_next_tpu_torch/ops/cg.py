@@ -1,11 +1,15 @@
 """Matrix-free preconditioned conjugate gradient + the solve wrapper.
 
 Port of ``nekstab_next_tpu/ops/cg.py``.  The JAX package wraps every inner
-solve in ``lax.custom_linear_solve`` so that ``jax.jvp`` of a step re-solves
-the same system on the tangent right-hand side.  The port writes the tangent
-step out instead (``stepper/linearized.py``), which calls the same
-:func:`cg_solve` on the tangent right-hand side; the autograd ``Function``
-that would let torch differentiate through a solve is not ported yet.
+solve in ``lax.custom_linear_solve(symmetric=True)``; the port wraps it in
+:class:`SymmetricSolve`, a ``torch.autograd.Function`` whose backward (and
+forward-mode ``jvp``) is the same solve applied to the cotangent (tangent)
+right-hand side.  The CG loop, its early exit and live mask run inside the
+Function's forward and are never recorded.  Only the right-hand side is
+differentiated: the derivative with respect to the operator
+(``dx = A^-1 (db - dA x)``, needed when the step depends on a varying
+``dt``) is not ported.  The direct tangent step is written out
+(``stepper/linearized.py``) and calls the same solve without a tape.
 
 Not ported (TPU workarounds): the lanes layout, ``unroll``,
 ``cg_fixed_iters`` and the mixed-precision refinement cycles.
@@ -83,6 +87,28 @@ def pcg(
     return (x, int(k)) if return_iters else x
 
 
+class SymmetricSolve(torch.autograd.Function):
+    """``x = solve(b)`` for a linear solve with a symmetric operator: the
+    transpose (and the tangent) of the solve is the solve itself.  The
+    cotangent goes in contiguous, as the fused kernels take it."""
+
+    @staticmethod
+    def forward(b, solve):
+        return solve(b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.solve = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.solve(g.contiguous()), None
+
+    @staticmethod
+    def jvp(ctx, db, _):
+        return ctx.solve(db.contiguous())
+
+
 def cg_solve(
     operator: Callable,
     b: torch.Tensor,
@@ -107,7 +133,17 @@ def cg_solve(
     complement part of the RHS passes through unchanged.
 
     ``fused_solve`` (optional): the whole iteration as one call
-    (ops/fused_cg.py) — the same subspace solve."""
+    (ops/fused_cg.py) — the same subspace solve.
+
+    Differentiable in ``b`` (:class:`SymmetricSolve`): the backward pass
+    runs the same solve on the cotangent, through ``fused_solve`` when one
+    is given."""
+    return SymmetricSolve.apply(b, lambda rhs: _solve(
+        operator, rhs, precond, tol, maxiter, dot, project, inner_op, fused_solve))
+
+
+def _solve(operator, b, precond, tol, maxiter, dot, project, inner_op, fused_solve):
+    """The body of :func:`cg_solve`, without autograd."""
 
     def _iterate(A_it, rhs, M_it):
         if project is not None:

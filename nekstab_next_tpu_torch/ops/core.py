@@ -55,6 +55,25 @@ def gather_table(gid_flat: np.ndarray, nglobal: int) -> np.ndarray:
     return tbl
 
 
+class _DSSum(torch.autograd.Function):
+    """The direct-stiffness sum as an autograd Function.  The sum is a
+    symmetric linear map (Q Q^T), so its transpose is the same gather: the
+    backward pass stays a deterministic gather rather than the scatter-add
+    that differentiating the indexing would record."""
+
+    @staticmethod
+    def forward(u, sem):
+        return sem._dssum(u)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sem = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sem._dssum(g.contiguous()), None
+
+
 # factor names, as the JAX SEM's attributes; float factors take the SEM's
 # dtype, the rest stay integer
 FLOAT_KEYS = (
@@ -206,7 +225,13 @@ class SEMBase(nn.Module):
     # ------------------------------------------------------------------
     def dssum(self, u: torch.Tensor) -> torch.Tensor:
         """Direct-stiffness sum over shared nodes; trailing component axes
-        allowed: (nelem, n, .., n, ...)."""
+        allowed: (nelem, n, .., n, ...).  Differentiable: the sum is
+        symmetric, so its backward is the same gather (:class:`_DSSum`)."""
+        if u.requires_grad:
+            return _DSSum.apply(u, self)
+        return self._dssum(u)
+
+    def _dssum(self, u: torch.Tensor) -> torch.Tensor:
         flat = u.reshape((self.gid.shape[0],) + tuple(u.shape[self.ndim + 1:]))
         ext = torch.cat([flat, flat.new_zeros((1,) + tuple(flat.shape[1:]))])
         return ext[self._gs_local].sum(dim=1).reshape(u.shape)
@@ -369,6 +394,11 @@ class SEM(SEMBase):
         D operator), integrated on the velocity GLL grid."""
         d = self.bm * self.divv(u)
         return torch.einsum("ia,jb,eij->eab", self.Jpg, self.Jpg, d)
+
+    def p_to_gll(self, p: torch.Tensor) -> torch.Tensor:
+        """Interpolate a Gauss pressure field to the velocity GLL nodes
+        (for output and post-processing only)."""
+        return torch.einsum("ia,jb,eab->eij", self.Jpg, self.Jpg, p)
 
     def grad_from_p(self, q: torch.Tensor) -> torch.Tensor:
         """The exact transpose of :meth:`div_to_p` (the weak pressure

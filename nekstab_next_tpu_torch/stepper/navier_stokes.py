@@ -236,33 +236,38 @@ class NavierStokes:
         return E
 
     # ------------------------------------------------------------------
-    def step(self, state: FlowState, fc=None) -> FlowState:
-        """Advance one time step."""
+    def step(self, state: FlowState, fc=None, dt: Optional[float] = None) -> FlowState:
+        """Advance one time step; ``dt`` overrides the constructor's time
+        step for this step (Newton on a horizon that ``ns.dt`` does not
+        divide)."""
         k = min(state.step, 2)  # 0,1,2 -> BDF1,2,3
+        dt = self.dt if dt is None else float(dt)
         carry_dp = state.dp is not None
         fields = (state.u, state.p, state.ulag, state.nlag) + (
             (state.dp,) if carry_dp else ()
         )
-        out = self._core(fields, state.time, k, fc=fc)
+        out = self._core(fields, state.time, k, fc=fc, dt=dt)
         return FlowState(
             u=out[0], p=out[1], ulag=out[2], nlag=out[3],
-            time=state.time + self.dt, step=state.step + 1,
+            time=state.time + dt, step=state.step + 1,
             dp=out[4] if carry_dp else None,
         )
 
     def _core(self, fields: Tuple, time: float, k: int, fc=None,
-              lin_base: Optional[torch.Tensor] = None) -> Tuple:
+              lin_base: Optional[torch.Tensor] = None,
+              dt: Optional[float] = None) -> Tuple:
         """One step on the field tuple (u, p, ulag, nlag[, dp]).
 
         ``k`` selects the BDF/EXT order (0,1,2 -> BDF1,2,3).  With
         ``lin_base`` the step is the TANGENT step about the frozen base
         velocity: the explicit term is linearized there and the Dirichlet
         lift is zero (its derivative); everything else is affine in the
-        fields and runs unchanged, solves included."""
+        fields and runs unchanged, solves included.  ``dt`` overrides the
+        constructor's time step."""
         u0, p0, ulag0, nlag0 = fields[:4]
         dp0 = fields[4] if len(fields) > 4 else None
         s = self.sem
-        dt = self.dt
+        dt = self.dt if dt is None else float(dt)
         g0, b = _BDF[k + 1]
         a = _EXT[k + 1]
 
@@ -333,7 +338,7 @@ class NavierStokes:
         ustar = w + u_bc
 
         if not pnpn2:
-            dp = self._pressure_laplacian(ustar, dp0, g0)
+            dp = self._pressure_laplacian(ustar, dp0, g0, dt)
             # approximate projection, mass-averaged back onto C0; the lift
             # is zero in the tangent step
             u_new = ustar - (dt / g0) * s.gradv(dp)
@@ -392,13 +397,13 @@ class NavierStokes:
             out = out + (dp,)
         return out
 
-    def _pressure_laplacian(self, ustar, dp0, g0) -> torch.Tensor:
+    def _pressure_laplacian(self, ustar, dp0, g0, dt) -> torch.Tensor:
         """Pressure increment of the 'laplacian' scheme on the GLL grid:
         K dp = -(g0/dt) B div(u*), Dirichlet 0 at outflow nodes, the mean
         removed on enclosed meshes.  The mixed branch carries ``dp`` but
         takes no warm start from it, as the JAX package's."""
         s = self.sem
-        rhs_p = -(g0 / self.dt) * s.bm * s.divv(ustar)
+        rhs_p = -(g0 / dt) * s.bm * s.divv(ustar)
         project_mean = not s.has_pressure_dirichlet
         if self.mixed is not None:
             return elliptic_solve_mixed(
@@ -426,13 +431,14 @@ class NavierStokes:
         return dp if x0p is None else dp + x0p
 
     # ------------------------------------------------------------------
-    def advance(self, state: FlowState, nsteps: int) -> FlowState:
+    def advance(self, state: FlowState, nsteps: int, dt: Optional[float] = None) -> FlowState:
         """nsteps time steps — one propagator application."""
         for _ in range(nsteps):
-            state = self.step(state)
+            state = self.step(state, dt=dt)
         return state
 
-    def propagator(self, u0: torch.Tensor, nsteps: int, time0: float = 0.0) -> torch.Tensor:
+    def propagator(self, u0: torch.Tensor, nsteps: int, time0: float = 0.0,
+                   dt: Optional[float] = None) -> torch.Tensor:
         """exp(T L)-style map on velocity fields: fresh state, integrate,
         return the final velocity."""
-        return self.advance(self.make_state(u0, time=time0), nsteps).u
+        return self.advance(self.make_state(u0, time=time0), nsteps, dt=dt).u

@@ -1,11 +1,14 @@
-"""Profile one tangent matvec of the PyTorch port on one NVIDIA GPU.
+"""Profile the PyTorch port's hot calls on one NVIDIA GPU.
 
     python3 profile_torch.py
 
-Profiles both of chip_smoke.py's paths: the flagship 50-step f32 matvec
-through K1 and K2, then the 10-step mixed-precision cube matvec through K4.  After one
-warm-up matvec, one matvec runs under ``torch.profiler`` (CPU and CUDA
-activities).  Prints the wall time, the device-busy time (the union of the
+Profiles chip_smoke.py's paths: the flagship 50-step f32 matvec through K1
+and K2, the same operator's rmatvec (the adjoint: the backward pass of the
+tangent steps, K1 and K2 on the cotangents), one Arnoldi step of the
+stability analysis on it (a matvec, then the batched orthogonalization
+against k = 24 columns), then the 10-step mixed-precision cube matvec
+through K4.  After one warm-up call, one call runs under ``torch.profiler``
+(CPU and CUDA activities).  Prints the wall time, the device-busy time (the union of the
 kernels' intervals) and the idle share, the number of device kernels, the
 device time by kernel name (and the port's own kernels, ``nsk`` in their
 names, each with its launches), and the host ops with the most CPU time, each
@@ -36,9 +39,12 @@ def busy_us(intervals) -> float:
     return total
 
 
+ARNOLDI_K = 24  # the stability API's k_dim in chip_smoke.py
+
+
 def build(path: str):
-    """(operator, input, velocity dof x steps) of one path, as chip_smoke.py
-    builds it."""
+    """(the call to profile, velocity dof x steps of one call) of one path,
+    as chip_smoke.py builds it."""
     import torch
 
     import chip_smoke as cs
@@ -46,11 +52,25 @@ def build(path: str):
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda", 0)
-    if path == "cylinder":
+    if path.startswith("cylinder"):
         case = cs.make_case(torch.float32, cs.CAPS_F32, fused=True)
         base = case.uniform_flow()
         op = LinearizedOperator(case.make_ns(), base, nsteps=cs.NSTEPS)
-        return op, case.sem.vmask * base, case.mesh.npoints * 2 * cs.NSTEPS
+        q = case.sem.vmask * base
+        work = case.mesh.npoints * 2 * cs.NSTEPS
+        if path == "cylinder":
+            return lambda: op.matvec(q), work
+        if path == "cylinder rmatvec":
+            return lambda: op.rmatvec(q), work
+        from nekstab_next_tpu_torch.algorithms import velocity_space
+        from nekstab_next_tpu_torch.krylov import Basis, arnoldi_step
+
+        basis = Basis(velocity_space(case.sem), q, capacity=ARNOLDI_K + 1)
+        basis.Q[:ARNOLDI_K] = torch.as_tensor(rng.standard_normal(
+            (ARNOLDI_K,) + tuple(q.shape)), dtype=q.dtype, device=dev)
+        H = np.zeros((ARNOLDI_K + 1, ARNOLDI_K))
+        return (lambda: arnoldi_step(op.matvec, basis.space, basis, H, ARNOLDI_K - 1),
+                work)
     from nekstab_next_tpu_torch.cases.cube import CubeRoughnessCase
     from nekstab_next_tpu_torch.config import SolverConfig
     from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
@@ -62,7 +82,7 @@ def build(path: str):
     op = LinearizedOperator(ns, base, nsteps=cs.CUBE_NSTEPS)
     q = cube.sem.vmask * torch.as_tensor(rng.standard_normal(tuple(base.shape)),
                                          dtype=torch.float64, device=dev)
-    return op, q, cube.mesh.npoints * 3 * cs.CUBE_NSTEPS
+    return (lambda: op.matvec(q)), cube.mesh.npoints * 3 * cs.CUBE_NSTEPS
 
 
 def profile(path: str, tag: str) -> None:
@@ -70,13 +90,13 @@ def profile(path: str, tag: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    op, q, dof_steps = build(path)
-    op.matvec(q)  # warm-up
+    call, dof_steps = build(path)
+    call()  # warm-up
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        op.matvec(q)
+        call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -117,7 +137,7 @@ def main() -> None:
     tag = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    for path in ("cylinder", "cube"):
+    for path in ("cylinder", "cylinder rmatvec", "cylinder arnoldi step", "cube"):
         profile(path, tag)
 
 

@@ -32,6 +32,17 @@ EXAMPLE = dict(pressure_tol=1e-7, velocity_tol=1e-8, pressure_maxiter=300,
                velocity_maxiter=120)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread while this module runs: the test suite runs
+    several worker processes at once, and torch's thread pools on tiny
+    tensors slow down many-fold when they contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jcase():
     return JaxCube(**CUBE, solver=JaxSolverConfig(**EXAMPLE))

@@ -38,6 +38,17 @@ TIGHT = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=600,
              velocity_maxiter=300)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread while this module runs: the test suite runs
+    several worker processes at once, and torch's thread pools on tiny
+    tensors slow down many-fold when they contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def taylor_green():
     mesh = jax_box_mesh_2d(3, 3, order=5, x1=2 * np.pi, y1=2 * np.pi,
                            periodic_x=True, periodic_y=True)

@@ -22,6 +22,17 @@ from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
 MESH = dict(nr=4, ntheta=8, order=6)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread while this module runs: the test suite runs
+    several worker processes at once, and torch's thread pools on tiny
+    tensors slow down many-fold when they contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_stepper(jcase, jns, dtype):
     """The port's stepper on the JAX case's factors and config."""
     sem = sem_from_arrays(sem_arrays(jcase.sem), dtype=dtype, device="cpu")
@@ -106,11 +117,16 @@ def test_matvec_is_linear():
 
 
 def test_adjoint_and_forcing_raise():
+    # the adjoint is ported (tests/test_torch_adjoint.py) except about the
+    # legacy mixed-precision step; the tangent of a forcing hook is not
+    mixed = CylinderCase(nr=2, ntheta=4, order=4, device="cpu", mixed_precision=True)
+    op = LinearizedOperator(mixed.make_ns(), mixed.uniform_flow(), nsteps=2)
+    with pytest.raises(NotImplementedError):
+        op.rmatvec(mixed.uniform_flow())
     case = CylinderCase(nr=2, ntheta=4, order=4, device="cpu")
     ns = case.make_ns()
-    op = LinearizedOperator(ns, case.uniform_flow(), nsteps=2)
-    with pytest.raises(NotImplementedError):
-        op.rmatvec(case.uniform_flow())
+    assert LinearizedOperator(ns, case.uniform_flow(), nsteps=2).rmatvec(
+        case.uniform_flow()).shape == case.uniform_flow().shape
     ns.forcing = lambda u, t: 0.0 * u
     with pytest.raises(NotImplementedError):
         LinearizedOperator(ns, case.uniform_flow(), nsteps=2)

@@ -34,6 +34,17 @@ CUBE = dict(reynolds=60.0, h=1.0, lx=5.0, ly=3.0, lz=3.0, cube_x=2.5,
             nx=5, ny=3, nz=3, order=3, delta=1.0, target_cfl=0.2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread while this module runs: the test suite runs
+    several worker processes at once, and torch's thread pools on tiny
+    tensors slow down many-fold when they contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def sem2():
     jsem = JaxSEM(jax_box_mesh_2d(3, 3, order=6, grading_x=1.3))

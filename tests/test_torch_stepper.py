@@ -27,6 +27,17 @@ TIGHT = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=400,
              velocity_maxiter=200)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread while this module runs: the test suite runs
+    several worker processes at once, and torch's thread pools on tiny
+    tensors slow down many-fold when they contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_stepper(jcase, jns, dtype):
     """The port's stepper on the JAX case's factors and config."""
     sem = sem_from_arrays(sem_arrays(jcase.sem), dtype=dtype, device="cpu")
