@@ -36,7 +36,17 @@ source, sm_90a, all at once) and drives:
    steps a matvec, k_dim 24, one restart) with the wavemaker and base-flow
    sensitivity of their modes; then the rmatvec/matvec time ratio, the
    f64 step at the example's tolerances, ``ortho_insert`` at k = 24 and
-   128, and the projected time of each preset's eigen stages.
+   128, and the projected time of each preset's eigen stages;
+4. the fused-IR mixed-precision path (``--precision mixed`` of the
+   example: f64 state on the PnPn-2 step, K1 and K2 as the f32 inner
+   solves of iterative refinement) on the flagship mesh about the loaded
+   base flow: one step and the 50-step matvec and rmatvec through the
+   kernels against the same with their plain versions and against the f64
+   path at 1e-12 (bound 1e-7 each), their launches and each inner solve's
+   CG iterations, the adjoint identity, the saved modes' eigen-residuals
+   under the fused-IR operators at 540 steps (bound 1e-4), the step,
+   matvec and inner-solve times beside the f32 and f64 steps, and the
+   projected time of each preset's eigen stages on this path.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every phase is fatal on failure.  Imports nothing
@@ -46,8 +56,11 @@ Output: one line per result, then a ``{"kernels": [...]}`` JSON line (each
 kernel's launches on its path, max abs error against its plain version,
 time, plain time, and the least time the card could take, ``bound_ms``;
 for K1 and K2 also ``per_iter_ms``, ``phases``, the grid barriers the
-timed solve crossed, and ``rmatvec_launches``, the launches in one
-rmatvec's backward; K4 once per cube shape, with its ``shape``), the
+timed solve crossed, ``rmatvec_launches``, the launches in one
+rmatvec's backward, and ``fused_ir``: launches a fused-IR step, matvec,
+rmatvec backward and eigen-residual run, iterations per inner solve, and
+one BDF3 inner solve's kernel and plain times; K4 once per cube shape,
+with its ``shape``), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
@@ -68,6 +81,7 @@ import numpy as np
 
 NSTEPS = 50
 REPS = 3
+PLAIN_REPS = 1  # the plain paths' matvecs take 3-20 s each: one timed call
 # flagship: bench.py's f32 rung (bench.py:58-62,131-140)
 FLAGSHIP = dict(reynolds=60.0, nr=16, ntheta=48, order=6, outer_radius=40.0)
 CAPS_F32 = dict(pressure_tol=1e-5, velocity_tol=1e-6, pressure_maxiter=16,
@@ -113,6 +127,9 @@ CAPS_12 = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=2000,
 EXAMPLE_F64 = dict(pressure_precond="block")  # 1e-8 / 1e-9, the example's f64 solver
 IDENTITY_STEPS = 10
 EIGS = dict(k_dim=24, nev=2, max_restarts=1)
+# the fused-IR mixed path: examples/cylinder_stability.py's --precision mixed
+MIXED = dict(pressure_tol=1e-8, velocity_tol=1e-9, pressure_maxiter=500,
+             velocity_maxiter=200, pressure_precond="block", fused_solves=True)
 ORTHO_K = (24, 128)
 # published H100 SXM peaks: device memory and float32 outside the tensor
 # cores
@@ -664,7 +681,252 @@ def pipeline_phase(tag: str, dev) -> dict:
         log(f"projection {tag} pipeline: {label} preset eigen stages ({nd} + {na} matvecs "
             f"from {d}/summary.json, {n} steps each): f64 at the example's tolerances "
             f"{p64:.2f} h, f32 kernels (caps 16/10, flagship per-step time) {p32:.2f} h")
-    return {"rmatvec_launches": backward, "path_launches": path, "ms": ms, "ratio": ratio}
+    return {"rmatvec_launches": backward, "path_launches": path, "ms": ms, "ratio": ratio,
+            "base64": base64, "modes": modes, "dt": dt, "nsteps_full": nsteps_full,
+            "lam": {k: load(k).meta["eigenvalue"] for k in ("dRe", "aRe")},
+            "summary": summary, "f64_step_ms": steps, "f32_step_ms": ms["f32 matvec"] / NSTEPS}
+
+def cg_iterations(k, barriers: int) -> int:
+    """CG iterations of a K1/K2 launch from its grid barriers: 2 + 4 k, and
+    2 more with K2's mean projection (csrc/fused_*_cg.cu)."""
+    return (barriers - 2 - 2 * int(getattr(k, "project_mean", False))) // 4
+
+
+@contextlib.contextmanager
+def recording_solves(ns, log_calls: list):
+    """Record every K1/K2 launch of the stepper: (kernel, f32 rhs, its other
+    arguments, CG iterations from the launch's barriers).  Synchronises."""
+    fv, fp = ns.fused_v, ns.fused_p
+
+    def wrap(k, name):
+        solve = k.solve
+
+        def run(rhs, *a):
+            out = solve(rhs, *a)
+            log_calls.append((name, rhs.float().clone(), a, cg_iterations(k, k.last_barriers())))
+            return out
+        return run
+
+    fv.solve, fp.solve = wrap(fv, "fused_helmholtz_cg"), wrap(fp, "fused_pressure_cg")
+    try:
+        yield
+    finally:
+        del fv.solve, fp.solve
+
+
+def fused_ir_phase(tag: str, dev, pipe: dict) -> dict:
+    """The fused-IR mixed-precision path (f64 state on the PnPn-2 step, K1/K2
+    as the f32 inner solves of iterative refinement) on the flagship mesh
+    with the example's --precision mixed settings, about the loaded base
+    flow; fails on any check.  Returns the numbers the kernels line needs."""
+    import torch
+    from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.io import load_field
+    from nekstab_next_tpu_torch.mesh.mesh import BoundaryCondition as BC
+    from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+    from nekstab_next_tpu_torch.utils import (
+        boundary_quadrature, surface_force_and_torque, velocity_noise)
+
+    dt, base64, modes = pipe["dt"], pipe["base64"], pipe["modes"]
+    case = CylinderCase(**FLAGSHIP, dt=dt, device=dev, mixed_precision=True,
+                        solver=SolverConfig(**MIXED))
+    s64 = case.sem
+    t0 = time.perf_counter()
+    ns = case.make_ns()
+    if not (ns._mixed_ir and ns.mixed is None and ns._scheme == "pnpn2"):
+        fail("the fused-IR path did not engage on the flagship mesh")
+    fv, fp = ns.fused_v, ns.fused_p
+    cycles = ns.solver.mixed_ir_cycles
+    log(f"fused-IR: flagship mesh, example's mixed settings, {cycles} refinement cycles, "
+        f"inner solves at tol {fv.tol:g} with caps K1 {fv.maxiter}, K2 {fp.maxiter}; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    ns64 = CylinderCase(**FLAGSHIP, dt=dt, device=dev,
+                        solver=SolverConfig(**CAPS_12)).make_ns()
+
+    def counts():
+        return {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+
+    # ---- R1. one step: launches, iterations, kernels vs plain vs f64 ----
+    st0 = ns.make_state(base64)
+    calls = []
+    fv.launches = fp.launches = 0
+    with recording_solves(ns, calls):
+        st1 = ns.step(st0)
+    torch.cuda.synchronize()
+    per_step = counts()
+    if per_step != {k: cycles for k in per_step}:
+        fail(f"a fused-IR step launched {per_step}, expected {cycles} of each")
+    with plain_solves(ns):
+        st1_p = ns.step(st0)
+    st1_64 = ns64.step(ns64.make_state(base64))
+    r_p, r_64 = rel(st1.u, st1_p.u), rel(st1.u, st1_64.u)
+    log(f"fused-IR step: launches {per_step}; kernels vs plain versions rel {r_p:.3e} "
+        f"(bound 1e-7), vs f64 at 1e-12 drift {r_64:.3e} (bound 1e-7)")
+    if st1.u.dtype != torch.float64 or not (r_p < 1e-7 and r_64 < 1e-7):
+        fail(f"fused-IR step: {st1.u.dtype}, vs plain {r_p:.3e}, drift {r_64:.3e}")
+
+    # the inner solves of a BDF3 step and of a tangent step: iterations at
+    # 3e-6, none at its cap (a capped inner solve stalls the refinement)
+    calls.clear()
+    with recording_solves(ns, calls):
+        st3 = ns.advance(st0, 3)
+        LinearizedOperator(ns, base64, nsteps=3).matvec(velocity_noise(s64, seed=3))
+    torch.cuda.synchronize()
+    iters = {name: [c[3] for c in calls if c[0] == name] for name in per_step}
+    caps = {"fused_helmholtz_cg": fv.maxiter, "fused_pressure_cg": fp.maxiter}
+    log(f"fused-IR inner iterations per solve (3 steps, then a 3-step tangent; "
+        f"cycle by cycle): {iters}")
+    if any(max(v) >= caps[k] for k, v in iters.items()):
+        fail(f"a fused-IR inner solve hit its cap: {iters}, caps {caps}")
+    # the first cycle's solves of the third (BDF3) step, for the timings
+    bdf3 = {name: next(c for c in calls[4 * cycles:6 * cycles] if c[0] == name)
+            for name in per_step}
+
+    # ---- R2. 50-step tangent matvec and rmatvec -------------------------
+    outside = (s64.bms > 0)[..., None].to(s64.dtype)
+    q, w = (outside * velocity_noise(s64, seed=sd) for sd in (4, 5))
+    op = LinearizedOperator(ns, base64, nsteps=NSTEPS)
+    op64 = LinearizedOperator(ns64, base64, nsteps=NSTEPS)
+    fv.launches = fp.launches = 0
+    mv = op.matvec(q)
+    torch.cuda.synchronize()
+    mv_launches = counts()
+    op._stage_vjps()
+    fv.launches = fp.launches = 0
+    rmv = op.rmatvec(w)
+    torch.cuda.synchronize()
+    rmv_launches = counts()
+    with plain_solves(ns):
+        mv_p, rmv_p = op.matvec(q), op.rmatvec(w)
+    mv_64, rmv_64 = op64.matvec(q), op64.rmatvec(w)
+    checks = {"matvec": (rel(mv, mv_p), rel(mv, mv_64)),
+              "rmatvec": (rel(rmv, rmv_p), rel(rmv, rmv_64))}
+    want = {k: NSTEPS * cycles for k in per_step}
+    for name, (r_p, r_64) in checks.items():
+        log(f"fused-IR {NSTEPS}-step {name}: launches "
+            f"{mv_launches if name == 'matvec' else rmv_launches}"
+            f"{' (backward only)' if name == 'rmatvec' else ''}; kernels vs plain versions "
+            f"rel {r_p:.3e} (bound 1e-7), vs f64 at 1e-12 drift {r_64:.3e} (bound 1e-7)")
+        if not (r_p < 1e-7 and r_64 < 1e-7):
+            fail(f"fused-IR {name}: vs plain {r_p:.3e}, drift {r_64:.3e}")
+    if mv_launches != want or rmv_launches != want:
+        fail(f"fused-IR launches: matvec {mv_launches}, rmatvec {rmv_launches}, want {want}")
+    bms = s64.bms[..., None]
+    a, b = float(torch.sum(mv * w * bms)), float(torch.sum(q * rmv * bms))
+    r_id = abs(a - b) / abs(a)
+    log(f"fused-IR adjoint identity ({NSTEPS} steps): rel {r_id:.3e} (bound 1e-8)")
+    if not (r_id <= 1e-8):
+        fail(f"fused-IR adjoint identity: rel {r_id:.3e}")
+
+    # ---- R3. eigen-residuals of the saved modes at the full horizon -----
+    # (the path's run: launch counts set to 0 just before, read after)
+    fv.launches = fp.launches = 0
+    op_full = LinearizedOperator(ns, base64, nsteps=pipe["nsteps_full"])
+    t0 = time.perf_counter()
+    res_d = eigen_residual(s64, op_full.matvec, modes["dRe"], modes["dIm"],
+                           pipe["lam"]["dRe"], op_full.T)
+    res_a = eigen_residual(s64, op_full.rmatvec, modes["aRe"], modes["aIm"],
+                           pipe["lam"]["aRe"], op_full.T)
+    torch.cuda.synchronize()
+    path = counts()
+    sm = pipe["summary"]
+    log(f"fused-IR eigen-residuals of the loaded modes ({pipe['nsteps_full']} steps, "
+        f"{time.perf_counter() - t0:.1f} s): direct {res_d:.3e} (sigma "
+        f"{sm['direct']['sigma']:.6f}), adjoint under rmatvec {res_a:.3e} (sigma "
+        f"{sm['adjoint']['sigma']:.6f}), each with its own lambda (bound 1e-4); "
+        f"kernel launches {path}")
+    if not (res_d <= 1e-4 and res_a <= 1e-4):
+        fail(f"fused-IR eigen-residuals: direct {res_d:.3e}, adjoint {res_a:.3e}")
+    if min(path.values()) == 0:
+        fail(f"the fused-IR run launched no K1 or K2: {path}")
+
+    # the quick preset's artifacts (JAX, f64) under the fused-IR operators
+    # of the quick mesh: Cd of the saved base flow and both modes'
+    # eigen-residuals at its horizon, reported (not gated)
+    root = os.path.dirname(os.path.abspath(__file__))
+    qart = os.path.join(root, ARTIFACTS[1])
+    loadq = lambda name: load_field(os.path.join(qart, f"{name}_cyl_00001.npz"))
+    with open(os.path.join(qart, "summary.json")) as f:
+        smq = json.load(f)
+    quick = CylinderCase(**QUICK, device=dev, mixed_precision=True, solver=SolverConfig(**MIXED))
+    nq = max(int(round(HORIZON / quick.dt)), 1)
+    quick.dt = HORIZON / nq
+    nsq = quick.make_ns()
+    if not nsq._mixed_ir:
+        fail("the fused-IR path did not engage on the quick preset's mesh")
+    bfq = loadq("BF")
+    base_q = torch.as_tensor(bfq.u, device=dev)
+    cd_q = 2.0 * float(surface_force_and_torque(
+        quick.sem, boundary_quadrature(quick.mesh, tags=(BC.WALL,)), base_q,
+        torch.as_tensor(bfq.p, device=dev), viscosity=1.0 / smq["reynolds"])[0])
+    opq = LinearizedOperator(nsq, base_q, nsteps=nq)
+    mq = {k: torch.as_tensor(loadq(k).u, device=dev) for k in ("dRe", "dIm", "aRe", "aIm")}
+    res_qd = eigen_residual(quick.sem, opq.matvec, mq["dRe"], mq["dIm"],
+                            loadq("dRe").meta["eigenvalue"], opq.T)
+    res_qa = eigen_residual(quick.sem, opq.rmatvec, mq["aRe"], mq["aIm"],
+                            loadq("aRe").meta["eigenvalue"], opq.T)
+    log(f"fused-IR, quick preset artifacts ({ARTIFACTS[1]}, JAX f64; {quick.mesh.nelem} "
+        f"elements, {nq} steps): Cd of the saved base flow {cd_q:.15g} vs summary.json "
+        f"{smq['cd']:.15g}; eigen-residuals direct {res_qd:.3e} (sigma "
+        f"{smq['direct']['sigma']:.9f}), adjoint under rmatvec {res_qa:.3e} (sigma "
+        f"{smq['adjoint']['sigma']:.9f}), each with its own lambda (reported)")
+
+    # ---- R4. times -------------------------------------------------------
+    ms = {}
+
+    def chained(fn, x0):
+        state = {"x": x0}
+
+        def run():
+            state["x"] = fn(state["x"])
+        return run
+
+    st = {"s": st3}
+
+    def step():
+        st["s"] = ns.step(st["s"])
+    ms["step"] = cuda_ms(step, 20)
+    ms["matvec"] = cuda_ms(chained(op.matvec, q), REPS)
+    ms["rmatvec"] = cuda_ms(chained(op.rmatvec, w), REPS)
+    ratio = ms["rmatvec"] / ms["matvec"]
+    solve = {}
+    for name, (_, rhs, args, it) in bdf3.items():
+        k = fv if name == "fused_helmholtz_cg" else fp
+        flops = (k1_flops(s64.nelem, s64.n, 2, it) if k is fv
+                 else k2_flops(s64.nelem, s64.n, s64.pc_nc, it))
+        solve[name] = {"ms": kernel_ms(lambda: k.solve(rhs, *args), 20),
+                       "plain_ms": cuda_ms(lambda: k.plain(rhs, *args), 5), "iterations": it,
+                       **roofline(nbytes(rhs, rhs, *k._dev.values()), flops)}
+    log(f"timing {tag} fused-IR (flagship, example's mixed settings): step "
+        f"{ms['step']:.2f} ms (f64 at the example's tolerances "
+        f"{pipe['f64_step_ms']['full'][1]:.2f} ms, f32 kernels at caps 16/10 "
+        f"{pipe['f32_step_ms']:.2f} ms a tangent step); {NSTEPS}-step matvec "
+        f"{ms['matvec']:.2f} ms, rmatvec {ms['rmatvec']:.2f} ms, ratio {ratio:.3f}")
+    for name, v in solve.items():
+        log(f"timing {tag} one fused-IR inner {name} solve (BDF3 step, tol {fv.tol:g}): "
+            f"kernel {v['ms']:.4f} ms at {v['iterations']} iterations, plain "
+            f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+    stq = {"s": nsq.make_state(base_q)}
+
+    def step_q():
+        stq["s"] = nsq.step(stq["s"])
+    ir_steps = {"full": (pipe["nsteps_full"], ms["step"]), "quick": (nq, cuda_ms(step_q, 20))}
+    log(f"timing {tag} fused-IR step on the quick preset's mesh ({quick.mesh.nelem} "
+        f"elements): {ir_steps['quick'][1]:.2f} ms")
+    for label, d in (("full", ARTIFACTS[0]), ("quick", ARTIFACTS[1])):
+        with open(os.path.join(root, d, "summary.json")) as f:
+            smd = json.load(f)
+        nd, na = smd["direct"]["n_matvecs"], smd["adjoint"]["n_matvecs"]
+        n, t_ir = ir_steps[label]
+        t64 = pipe["f64_step_ms"][label][1]
+        p64 = n * (nd + na * pipe["ratio"]) * t64 / 3.6e6
+        pir = n * (nd + na * ratio) * t_ir / 3.6e6
+        log(f"projection {tag} fused-IR: {label} preset eigen stages ({nd} + {na} matvecs, "
+            f"{n} steps each): fused-IR {pir:.2f} h at {t_ir:.2f} ms a step, f64 at the "
+            f"example's tolerances {p64:.2f} h")
+    return {"per_step": per_step, "matvec": mv_launches, "rmatvec": rmv_launches,
+            "path": path, "iterations": iters, "solve": solve, "ms": ms}
 
 
 def main() -> None:
@@ -766,12 +1028,12 @@ def main() -> None:
 
     rates["f32 kernels"] = cuda_ms(chained(op, q), REPS)
     with plain_solves(ns):
-        rates["f32 plain versions"] = cuda_ms(chained(op, q), REPS)
+        rates["f32 plain versions"] = cuda_ms(chained(op, q), PLAIN_REPS)
     case64c = make_case(torch.float64, CAPS_F32, fused=False)
     op64c = LinearizedOperator(case64c.make_ns(), case64c.uniform_flow(), nsteps=NSTEPS)
     rates["f64 plain, f32 caps 16/10"] = cuda_ms(
-        chained(op64c, case64c.sem.vmask * case64c.uniform_flow()), REPS)
-    rates["f64 plain, tight 1e-10"] = cuda_ms(chained(op64, q64), REPS)
+        chained(op64c, case64c.sem.vmask * case64c.uniform_flow()), PLAIN_REPS)
+    rates["f64 plain, tight 1e-10"] = cuda_ms(chained(op64, q64), PLAIN_REPS)
     for name, ms in rates.items():
         log(f"timing {tag} matvec {name}: {ms:.2f} ms/matvec, "
             f"{ndof * NSTEPS / (ms / 1e3):.4e} dof-steps/s")
@@ -905,7 +1167,7 @@ def main() -> None:
     ndof3 = cube.mesh.npoints * 3
     rates3 = {"mixed, K4 kernel": cuda_ms(chained(op3, q3), CUBE_REPS)}
     with plain_k4(nsm):
-        rates3["mixed, K4 plain version"] = cuda_ms(chained(op3, q3), CUBE_REPS)
+        rates3["mixed, K4 plain version"] = cuda_ms(chained(op3, q3), PLAIN_REPS)
     ns64e = NavierStokes(s3, viscosity=nu3, dt=cube.dt, u_bc=cube.u_bc,
                          solver=SolverConfig(**CUBE_TOL, pressure_operator="laplacian"))
     rates3["f64 'laplacian', example tolerances"] = cuda_ms(
@@ -929,13 +1191,21 @@ def main() -> None:
     # ==== the Krylov layer and the cylinder pipeline (K1, K2 again) ======
     pipe = pipeline_phase(tag, dev)
 
+    # ==== the fused-IR mixed-precision path (K1, K2 under f64 state) ======
+    ir = fused_ir_phase(tag, dev, pipe)
+
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
          "launches": launches[name], "max_abs_err": err[name],
          "ms": solve_ms[name][0], "plain_ms": solve_ms[name][1],
          **bounds[name], "library_ms": None,
          "per_iter_ms": sweep[name]["per_iter_ms"], "phases": phases[name],
-         "rmatvec_launches": pipe["rmatvec_launches"][name]}
+         "rmatvec_launches": pipe["rmatvec_launches"][name],
+         "fused_ir": {"launches_per_step": ir["per_step"][name],
+                      "matvec_launches": ir["matvec"][name],
+                      "rmatvec_launches": ir["rmatvec"][name],
+                      "path_launches": ir["path"][name],
+                      "iterations": ir["iterations"][name], **ir["solve"][name]}}
         for name in ("fused_helmholtz_cg", "fused_pressure_cg")
     ] + [
         # K4 once per cube shape: its launches on the cube matvec at that shape

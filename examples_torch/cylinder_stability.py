@@ -18,8 +18,12 @@ Differences from the JAX script:
   preconditioner is not ported yet (ROADMAP item 14).  Both solve the same
   system to the same tolerances, so the converged answers agree to the
   solver tolerance; only the iteration counts differ.
-* ``--precision mixed`` (the JAX package's fused-IR production path) raises:
-  it is ROADMAP item 8.
+
+``--precision mixed`` is the JAX script's production route, as there: a
+warm phase on the f32 fused kernels (K1/K2 at caps 16/10: the DNS settle
+and Newton to 3e-4), then the fused-IR mixed-precision stepper (f64 state,
+K1/K2 as the f32 inner solves of iterative refinement, 1e-8/1e-9
+tolerances) for the Newton polish to 1e-9 and the eigen stages.
 
 Runs on the current CUDA device; ``NEKSTAB_CPU=1`` selects the CPU, as the
 JAX script's variable does.
@@ -66,23 +70,30 @@ def main():
                     help="comma list: direct[,adjoint]; adjoint enables the "
                          "wavemaker/sensitivity stage")
     ap.add_argument("--precision", choices=["f64", "mixed"], default="f64",
-                    help="'f64' (the default); 'mixed' (the JAX package's "
-                         "fused-IR path) is not ported yet")
+                    help="'f64' (the default) or 'mixed': f32-fused settle + "
+                         "Newton warm phase, then the fused-IR mixed-precision "
+                         "stepper (f64 state, f32 K1/K2 inner solves, 1e-8/1e-9 "
+                         "tolerances) for the Newton polish and the eigen stages")
     args = ap.parse_args()
-    if args.precision == "mixed":
-        raise NotImplementedError(
-            "not ported: --precision mixed, the fused-IR mixed-precision "
-            "stepper (ROADMAP item 8)")
     P = PRESETS[args.preset]
     os.makedirs(args.outdir, exist_ok=True)
     device = "cpu" if os.environ.get("NEKSTAB_CPU") else None
 
+    mixed = args.precision == "mixed"
+    solver = (
+        SolverConfig(pressure_tol=1e-8, velocity_tol=1e-9,
+                     pressure_maxiter=500, velocity_maxiter=200,
+                     pressure_precond="block", fused_solves=True)
+        if mixed else SolverConfig(pressure_precond="block")
+    )
     case = CylinderCase(
         reynolds=args.reynolds, nr=P["nr"], ntheta=P["ntheta"],
         order=P["order"], outer_radius=P["outer_radius"],
-        solver=SolverConfig(pressure_precond="block"), device=device,
+        solver=solver, mixed_precision=mixed, device=device,
     )
     ns = case.make_ns()
+    if mixed:
+        assert ns._mixed_ir, "fused-IR mixed path did not engage"
     nsteps = max(int(round(P["horizon"] / case.dt)), 1)
     dt = P["horizon"] / nsteps
     ns.dt = dt
@@ -97,11 +108,38 @@ def main():
         print(f"[cyl] newton iter {it}  res={res:.3e}  ({time.time()-t0:.0f}s)",
               flush=True)
 
-    st = ns.advance(ns.make_state(case.uniform_flow()), P["settle"])
-    print(f"[cyl] DNS settle {P['settle']} steps done ({time.time()-t0:.0f}s)",
-          flush=True)
+    if mixed:
+        # warm phase on the fused f32 path (same mesh, same dt): DNS settle
+        # + inexact Newton down to the f32-reachable 3e-4, then the iterate
+        # goes to the fused-IR stepper for the 1e-9 polish
+        case32 = CylinderCase(
+            reynolds=args.reynolds, nr=P["nr"], ntheta=P["ntheta"],
+            order=P["order"], outer_radius=P["outer_radius"], dt=dt,
+            solver=SolverConfig(pressure_tol=1e-5, velocity_tol=1e-6,
+                                pressure_maxiter=16, velocity_maxiter=10,
+                                pressure_precond="block", fused_solves=True),
+            dtype=torch.float32, device=device,
+        )
+        ns32 = case32.make_ns()
+        st32 = ns32.advance(ns32.make_state(case32.uniform_flow()), P["settle"])
+        print(f"[cyl] f32 DNS settle {P['settle']} steps done "
+              f"({time.time()-t0:.0f}s)", flush=True)
+        warm = newton_krylov(
+            ns32, st32.u, horizon=P["horizon"], nsteps=nsteps,
+            cfg=NewtonConfig(tol=3e-4, max_iter=20), k_dim=P["newton_kdim"],
+            callback=newton_cb,
+        )
+        print(f"[cyl] f32 Newton warm res={warm.residual:.2e} "
+              f"({time.time()-t0:.0f}s)", flush=True)
+        u_seed = warm.u.to(torch.float64)
+    else:
+        st = ns.advance(ns.make_state(case.uniform_flow()), P["settle"])
+        print(f"[cyl] DNS settle {P['settle']} steps done ({time.time()-t0:.0f}s)",
+              flush=True)
+        u_seed = st.u
+
     result = newton_krylov(
-        ns, st.u, horizon=P["horizon"], nsteps=nsteps,
+        ns, u_seed, horizon=P["horizon"], nsteps=nsteps,
         cfg=NewtonConfig(tol=1e-9, max_iter=30), k_dim=P["newton_kdim"],
         callback=newton_cb,
     )

@@ -7,8 +7,9 @@ tangent linearized about every iterate, and an Eisenstat-Walker forcing of
 the GMRES tolerance from the current residual.
 
 Not ported: unstable periodic orbits (``upo=True``) and forced orbits
-(``forced=True``), ROADMAP item 12, and the finite-difference Jacobian
-(``NewtonConfig.finite_difference``), ROADMAP item 6; each raises."""
+(``forced=True``), ROADMAP item 12; each raises.  ``NewtonConfig.
+finite_difference`` is read nowhere, as in the JAX package: Newton always
+takes the exact tangent."""
 
 from __future__ import annotations
 
@@ -66,11 +67,6 @@ def newton_krylov(
         raise NotImplementedError(
             "not ported: Newton for periodic orbits (upo=True, forced=True), "
             "ROADMAP item 12"
-        )
-    if cfg.finite_difference:
-        raise NotImplementedError(
-            "not ported: NewtonConfig.finite_difference (the finite-difference "
-            "Jacobian), ROADMAP item 6"
         )
     s = ns.sem
     q = u0.to(device=s.device, dtype=s.dtype)

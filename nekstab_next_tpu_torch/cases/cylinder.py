@@ -40,7 +40,10 @@ class CylinderCase:
     solver: SolverConfig = SolverConfig()
     dtype: Optional[torch.dtype] = None  # None -> float64
     device: Optional[object] = None  # None -> the current CUDA device (raises without one)
-    mixed_precision: bool = False  # legacy mixed path ('laplacian' scheme); see NavierStokes
+    # f64 state, f32 inner solves under iterative refinement: fused-IR on K1/K2
+    # with fused_solves on a shift-decomposable mesh, else the legacy
+    # 'laplacian' path (NavierStokes chooses, as the JAX stepper does)
+    mixed_precision: bool = False
 
     def __post_init__(self):
         self.mesh = cylinder_mesh(

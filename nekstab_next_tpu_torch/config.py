@@ -9,9 +9,15 @@ not implement (``stepper/navier_stokes.py`` ``NavierStokes``):
 * ``lanes_layout``, ``cg_fixed_iters`` and ``fused_pressure=False`` are TPU
   workarounds and are not ported;
 * ``pressure_precond='schwarz'``, ``velocity_precond='block'``,
-  ``pressure_operator`` other than ``'pnpn2'``, ``dealias=False`` and
+  ``pressure_operator='consistent'``, ``dealias=False`` and
   ``finite_difference`` are not ported yet;
-* ``fused_solves`` needs float32 fields.
+* ``fused_solves`` needs float32 fields, or ``mixed_precision``, where the
+  kernels are the f32 inner solves of ``mixed_ir_cycles`` refinement
+  cycles (the fused-IR path).
+
+``bdf_order`` and ``NewtonConfig.finite_difference`` are read nowhere, as in
+the JAX package: the stepper always ramps BDF1 -> BDF3 and Newton always
+takes the exact tangent.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ class SolverConfig:
 
     dt: Optional[float] = None  # None -> from target_cfl
     target_cfl: float = 0.5
-    bdf_order: int = 3  # BDF3/EXT3 (the stepper ramps 1 -> 3)
+    bdf_order: int = 3  # read nowhere: the stepper always ramps BDF1 -> 3
     pressure_tol: float = 1e-8
     velocity_tol: float = 1e-9
     scalar_tol: float = 1e-9
@@ -36,7 +42,7 @@ class SolverConfig:
     scalar_maxiter: int = 500
     dealias: bool = True  # 3/2 over-integration of convection
     fdm_precond: bool = True  # FDM element preconditioner; False -> Jacobi
-    pressure_operator: str = "pnpn2"  # the port implements 'pnpn2' only
+    pressure_operator: str = "pnpn2"  # 'pnpn2' | 'laplacian' ('consistent' not ported)
     finite_difference: bool = False  # not ported
     fd_order: int = 2
     warm_start: bool = True  # residual-correction warm start of both solves
@@ -44,9 +50,9 @@ class SolverConfig:
     pressure_patch_overlap: str = "face"  # 'schwarz' only
     velocity_precond: str = "fdm"  # 'fdm' ('block' not ported)
     pressure_direct: bool = False  # lanes path only (not ported)
-    fused_solves: bool = False  # both inner solves as one CUDA kernel each
+    fused_solves: bool = False  # both inner solves as one CUDA kernel each (K1, K2)
     fused_pressure: bool = True  # False is a TPU-compiler workaround
-    mixed_ir_cycles: int = 2  # mixed-precision path (not ported)
+    mixed_ir_cycles: int = 2  # refinement cycles of each fused-IR solve
     cg_fixed_iters: bool = False  # TPU While-trip workaround (not ported)
     lanes_layout: bool = False  # TPU lanes layout (not ported)
 
@@ -54,13 +60,13 @@ class SolverConfig:
 @dataclasses.dataclass(frozen=True)
 class NewtonConfig:
     """Newton-Krylov knobs (field meanings as in the JAX package's
-    ``NewtonConfig``; ``finite_difference`` is not ported and raises in
-    ``algorithms/newton.py``)."""
+    ``NewtonConfig``; ``finite_difference`` is read nowhere, as in the JAX
+    package)."""
 
     max_iter: int = 100
     tol: float = 1e-10
     gmres_restarts: int = 100
     dynamic_tol: bool = True  # Eisenstat-Walker forcing of the GMRES tolerance
-    finite_difference: bool = False  # not ported
+    finite_difference: bool = False  # read nowhere (Newton takes the exact tangent)
     fd_order: int = 2
     fd_epsilon: float = 1e-6

@@ -11,8 +11,17 @@ differentiated: the derivative with respect to the operator
 ``dt``) is not ported.  The direct tangent step is written out
 (``stepper/linearized.py``) and calls the same solve without a tape.
 
-Not ported (TPU workarounds): the lanes layout, ``unroll``,
-``cg_fixed_iters`` and the mixed-precision refinement cycles.
+Iterative refinement (``ir_cycles``, the fused-IR mixed-precision path):
+the state stays in float64 and a fused float32 solve (ops/fused_cg.py) is
+the inner solve of ``ir_cycles`` refinement cycles, each against the f64
+operator.  ``SolverConfig.mixed_ir_cycles`` sets the count and defaults to
+2 (the JAX docstring's "3 cycles" is not what its config ships).  The
+cycles run inside :class:`SymmetricSolve`, so the tangent and the adjoint
+of a refined solve are the same refined solve, as JAX's
+``custom_linear_solve`` gives them.
+
+Not ported (TPU workarounds): the lanes layout, ``unroll`` and
+``cg_fixed_iters``.
 """
 
 from __future__ import annotations
@@ -119,6 +128,7 @@ def cg_solve(
     project: Optional[Callable] = None,
     inner_op: Optional[tuple] = None,
     fused_solve: Optional[Callable] = None,
+    ir_cycles: int = 0,
 ) -> torch.Tensor:
     """Solve the SPD system A x = b.
 
@@ -133,16 +143,40 @@ def cg_solve(
     complement part of the RHS passes through unchanged.
 
     ``fused_solve`` (optional): the whole iteration as one call
-    (ops/fused_cg.py) — the same subspace solve.
+    (ops/fused_cg.py) — the same subspace solve.  With ``ir_cycles > 0`` it
+    is the inner solve of that many cycles of iterative refinement
+    (:func:`_refined`) against ``A_sub`` on ``range(P)`` when ``inner_op``
+    is given, else against ``operator``.
 
     Differentiable in ``b`` (:class:`SymmetricSolve`): the backward pass
     runs the same solve on the cotangent, through ``fused_solve`` when one
     is given."""
     return SymmetricSolve.apply(b, lambda rhs: _solve(
-        operator, rhs, precond, tol, maxiter, dot, project, inner_op, fused_solve))
+        operator, rhs, precond, tol, maxiter, dot, project, inner_op, fused_solve,
+        ir_cycles))
 
 
-def _solve(operator, b, precond, tol, maxiter, dot, project, inner_op, fused_solve):
+def _refined(inner: Callable, A: Callable, rhs: torch.Tensor, cycles: int,
+             project: Optional[Callable]) -> torch.Tensor:
+    """Iterative refinement: ``cycles`` inner solves, each of the residual
+    against ``A`` at the precision of ``rhs`` (the first takes ``rhs``
+    itself), with ``project`` applied to every residual and correction."""
+    x = torch.zeros_like(rhs)
+    r = rhs
+    for i in range(cycles):
+        if i:
+            r = rhs - A(x)
+        if project is not None:
+            r = project(r)
+        dx = inner(r)
+        if project is not None:
+            dx = project(dx)
+        x = x + dx
+    return x
+
+
+def _solve(operator, b, precond, tol, maxiter, dot, project, inner_op, fused_solve,
+           ir_cycles):
     """The body of :func:`cg_solve`, without autograd."""
 
     def _iterate(A_it, rhs, M_it):
@@ -155,9 +189,16 @@ def _solve(operator, b, precond, tol, maxiter, dot, project, inner_op, fused_sol
         A_sub, P, M_sub = inner_op
         rP = P(b)
         comp = b - rP
-        x = fused_solve(rP) if fused_solve is not None else _iterate(A_sub, rP, M_sub)
+        if fused_solve is None:
+            x = _iterate(A_sub, rP, M_sub)
+        elif ir_cycles:
+            x = _refined(fused_solve, A_sub, rP, ir_cycles, project)
+        else:
+            x = fused_solve(rP)
         return x + comp
     if fused_solve is not None:
+        if ir_cycles:
+            return _refined(fused_solve, operator, b, ir_cycles, project)
         x = fused_solve(b if project is None else project(b))
         return x if project is None else project(x)
     return _iterate(operator, b, precond)

@@ -38,6 +38,7 @@ def elliptic_solve(
     coarse: bool = False,
     vblocks=None,
     fused_solve: Optional[Callable] = None,
+    ir_cycles: int = 0,
 ) -> torch.Tensor:
     """Solve the assembled system  (P local_op P) x = P rhs_local  by PCG.
 
@@ -49,6 +50,8 @@ def elliptic_solve(
     ``fdm``        : (h1, h2) — FDM block preconditioner instead of Jacobi
     ``coarse``     : with ``fdm``, add the Q1 vertex coarse correction
     ``fused_solve``: the whole subspace CG as one call (ops/fused_cg.py)
+    ``ir_cycles``  : with ``fused_solve``, that many cycles of iterative
+                     refinement around it (ops/cg.py ``cg_solve``)
     """
     if vblocks is not None:
         raise NotImplementedError(
@@ -96,5 +99,5 @@ def elliptic_solve(
 
     return cg_solve(
         A, rhs, tol=tol, maxiter=maxiter, dot=dot, project=project,
-        inner_op=(A_sub, P, M_sub), fused_solve=fused_solve,
+        inner_op=(A_sub, P, M_sub), fused_solve=fused_solve, ir_cycles=ir_cycles,
     )

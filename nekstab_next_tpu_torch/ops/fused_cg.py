@@ -25,11 +25,21 @@ Scope: 2-D, single device, float32 fields, n = order + 1 in 4..8 (one
 element's n*n nodes fit a 64-thread slot).  Unlike the TPU kernels, any
 conforming mesh works: the direct-stiffness sum is a gather over the
 node->copies table, not a shift decomposition.
+
+The fused-IR route (``ir=True``, the mixed-precision stepper): the SEM is
+float64 and each solve is the float32 inner solve of iterative refinement
+(ops/cg.py).  The kernels' constants are cast to float32 from the float64
+factors; ``solve`` takes a float64 right-hand side, runs the kernel on its
+float32 copy and returns float64.  ``plain`` then computes at float32 on a
+float32 copy of the SEM's factors (:func:`f32_twin`), so the card holds
+the kernel against the same function.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -41,12 +51,15 @@ from .schwarz import make_pressure_operator
 KERNEL_N = range(4, 9)  # supported n = order + 1
 
 
-def check_kernel_scope(sem) -> None:
-    """Raise ValueError if the fused kernels cannot take this SEM."""
-    if sem.dtype != torch.float32:
+def check_kernel_scope(sem, ir: bool = False) -> None:
+    """Raise ValueError if the fused kernels cannot take this SEM; with
+    ``ir`` (the kernels as the inner solves of iterative refinement) a
+    float64 SEM is taken too."""
+    if sem.dtype != torch.float32 and not (ir and sem.dtype == torch.float64):
         raise ValueError(
             f"fused_solves needs float32 fields (got {sem.dtype}); the f64 "
-            "path runs the plain PyTorch solves"
+            "path runs the plain PyTorch solves, and mixed_precision the "
+            "kernels as the f32 inner solves of iterative refinement"
         )
     if sem.n not in KERNEL_N:
         raise ValueError(
@@ -63,9 +76,20 @@ def padded_lists(keys: np.ndarray, nkeys: int) -> np.ndarray:
     return np.where(tbl == keys.size, -1, tbl).astype(np.int32)
 
 
+def f32_twin(sem):
+    """A copy of a SEM whose float factors are cast to float32 (its integer
+    tables shared): the operators the plain versions of the fused-IR route
+    call, at the precision and from the values of the kernels' constants."""
+    twin = copy.copy(sem)
+    twin._buffers = {k: (v.to(torch.float32) if v is not None and v.is_floating_point()
+                         else v) for k, v in sem._buffers.items()}
+    twin.dtype = torch.float32
+    return twin
+
+
 class _FusedBase:
-    def __init__(self, sem, maxiter: int, tol: float):
-        check_kernel_scope(sem)
+    def __init__(self, sem, maxiter: int, tol: float, ir: bool = False):
+        check_kernel_scope(sem, ir)
         self.sem = sem
         self.n, self.E = sem.n, sem.nelem
         self.maxiter = int(maxiter)
@@ -76,6 +100,12 @@ class _FusedBase:
         # card at once, and its zeroed partials + barrier-counter buffer
         self.grid = self.resident = 0
         self._sync = None
+
+    @functools.cached_property
+    def _ops(self):
+        """The SEM whose operators ``plain`` calls: float32 factors (the SEM
+        itself on the float32 route), built at the first plain solve."""
+        return self.sem if self.sem.dtype == torch.float32 else f32_twin(self.sem)
 
     def _gather_consts(self, dev) -> dict:
         """The dssum as the kernels read it: every local node's list of the
@@ -129,22 +159,25 @@ class FusedHelmholtzCG(_FusedBase):
     Replaces the TPU kernel ``nekstab_next_tpu/ops/fused_cg.py``
     ``FusedHelmholtzCG._build_call``."""
 
-    def __init__(self, sem, mask: torch.Tensor, maxiter: int, tol: float):
-        super().__init__(sem, maxiter, tol)
+    def __init__(self, sem, mask: torch.Tensor, maxiter: int, tol: float,
+                 ir: bool = False):
+        super().__init__(sem, maxiter, tol, ir)
         mask = mask if mask.dim() == 4 else mask[..., None]
         self.C = int(mask.shape[-1])
-        self.mask = mask.to(device=sem.device, dtype=sem.dtype).contiguous()
+        self.mask = mask.to(device=sem.device, dtype=torch.float32).contiguous()
 
     def _P(self, y: torch.Tensor) -> torch.Tensor:
-        sem, m = self.sem, self.mask
+        sem, m = self._ops, self.mask
         return m * (sem.inv_mult[..., None] * sem.dssum(m * y))
 
     def plain(self, rhs: torch.Tensor, h1, h2, return_iters: bool = False):
-        """The plain PyTorch version of the kernel (any device); with
-        ``return_iters`` also the number of CG iterations it took."""
-        sem = self.sem
+        """The plain PyTorch version of the kernel (any device), at float32
+        and returned in ``rhs``'s dtype; with ``return_iters`` also the
+        number of CG iterations it took."""
+        sem = self._ops
         squeeze = rhs.dim() == 3
-        b = rhs[..., None] if squeeze else rhs
+        b = rhs.to(torch.float32)
+        b = b[..., None] if squeeze else b
 
         def helm(y):
             return torch.stack(
@@ -155,14 +188,16 @@ class FusedHelmholtzCG(_FusedBase):
                    precond=lambda r: self._P(sem.fdm_apply(r, h1, h2, rel=1e-6)),
                    tol=self.tol, maxiter=self.maxiter,
                    dot=lambda a, c: torch.sum(a * c), return_iters=True)
-        x = x[..., 0] if squeeze else x
+        x = (x[..., 0] if squeeze else x).to(rhs.dtype)
         return (x, k) if return_iters else x
 
     def solve(self, rhs: torch.Tensor, h1, h2) -> torch.Tensor:
-        """Solve A x = rhs for rhs in range(P); rhs (E, n, n[, C])."""
+        """Solve A x = rhs for rhs in range(P); rhs (E, n, n[, C]), float32,
+        or float64 on the fused-IR route (solved at float32)."""
         if rhs.device.type == "cpu":
             return self.plain(rhs, h1, h2)
-        return self._launch(rhs, float(h1), float(h2))
+        x = self._launch(rhs.to(torch.float32).contiguous(), float(h1), float(h2))
+        return x.to(rhs.dtype)
 
     def _launch(self, rhs: torch.Tensor, h1: float, h2: float) -> torch.Tensor:
         from ._cuda import library
@@ -215,31 +250,35 @@ class FusedPressureCG(_FusedBase):
     Replaces the TPU kernel ``nekstab_next_tpu/ops/fused_cg.py``
     ``FusedPressureCG._build_call``."""
 
-    def __init__(self, sem, maxiter: int, tol: float, project_mean: bool = False):
-        super().__init__(sem, maxiter, tol)
+    def __init__(self, sem, maxiter: int, tol: float, project_mean: bool = False,
+                 ir: bool = False):
+        super().__init__(sem, maxiter, tol, ir)
         sem.setup_pressure_blocks()
         self.project_mean = bool(project_mean)
         self.npr = sem.npr
-        self._E_op = make_pressure_operator(sem)
 
     def _project(self, q: torch.Tensor) -> torch.Tensor:
         return q - torch.sum(q) / q.numel()
 
     def plain(self, rhs: torch.Tensor, return_iters: bool = False):
-        """The plain PyTorch version of the kernel (any device); with
-        ``return_iters`` also the number of CG iterations it took."""
-        b = self._project(rhs) if self.project_mean else rhs
-        x, k = pcg(self._E_op, b, precond=self.sem.pressure_precond_block,
+        """The plain PyTorch version of the kernel (any device), at float32
+        and returned in ``rhs``'s dtype; with ``return_iters`` also the
+        number of CG iterations it took."""
+        b = rhs.to(torch.float32)
+        b = self._project(b) if self.project_mean else b
+        x, k = pcg(make_pressure_operator(self._ops), b,
+                   precond=self._ops.pressure_precond_block,
                    tol=self.tol, maxiter=self.maxiter,
                    dot=lambda a, c: torch.sum(a * c), return_iters=True)
-        x = self._project(x) if self.project_mean else x
+        x = (self._project(x) if self.project_mean else x).to(rhs.dtype)
         return (x, k) if return_iters else x
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
-        """Solve E q = rhs; rhs (E, npr, npr)."""
+        """Solve E q = rhs; rhs (E, npr, npr), float32, or float64 on the
+        fused-IR route (solved at float32)."""
         if rhs.device.type == "cpu":
             return self.plain(rhs)
-        return self._launch(rhs)
+        return self._launch(rhs.to(torch.float32).contiguous()).to(rhs.dtype)
 
     def _launch(self, rhs: torch.Tensor) -> torch.Tensor:
         from ._cuda import library

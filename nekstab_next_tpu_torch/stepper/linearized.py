@@ -14,9 +14,10 @@ explicit term linearized about the base,
 
 and the lift set to zero (in both pressure schemes, the ``+ u_bc`` of the
 'laplacian' projection included) — exact, with no autograd on the hot path,
-and exactly one velocity and one pressure solve per tangent step; in the
+and exactly one velocity and one pressure solve per tangent step; in a
 mixed-precision step each is the same refined solve on the tangent
-right-hand side.  Stage k = min(step, 2) uses its own BDF/EXT coefficients,
+right-hand side (on the fused-IR path ``mixed_ir_cycles`` launches of K1
+and of K2 per tangent step).  Stage k = min(step, 2) uses its own BDF/EXT coefficients,
 as in the JAX ramp.  2-D and 3-D: the component count comes from ``q``.
 
 The adjoint ``rmatvec`` is the transpose in the sponge-masked energy
@@ -27,9 +28,11 @@ every step of that stage), applied in reverse step order: the transpose of
 a product of steps, as JAX's ``linear_transpose`` of its ``lax.scan``.
 Each inner solve's transpose is the same solve on the cotangent
 (``ops/cg.py`` :class:`SymmetricSolve`): on the f32 ``fused_solves`` path
-the backward pass launches the K1 and K2 kernels once each per step.  The
-legacy mixed-precision step has no adjoint here (its refined solve is not
-differentiable).
+the backward pass launches the K1 and K2 kernels once each per step, and
+on the fused-IR mixed path ``mixed_ir_cycles`` times each per step (the
+refinement cycles run inside the Function, so its backward is the refined
+solve).  The legacy mixed-precision step has no adjoint here (its refined
+solve is not differentiable).
 """
 
 from __future__ import annotations

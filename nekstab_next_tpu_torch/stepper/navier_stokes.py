@@ -18,8 +18,15 @@ Scheme: BDFk/EXTk (k ramps 1->3) with incremental pressure correction:
 4. p <- p + dp.
 
 ``mixed_precision=True`` keeps the f64 state and runs both solves as
-float32 inner CG with f64 iterative refinement (``ops/mixed.py``, with the
-fused local Helmholtz kernel K4), on the ``'laplacian'`` scheme.
+float32 inner solves under f64 iterative refinement, on one of two paths,
+chosen where the JAX package chooses them:
+
+* fused-IR, on a 2-D ``'pnpn2'`` step with ``fused_solves`` on a mesh whose
+  exchange shift-decomposes (``ops/exchange.py``): the same PnPn-2 scheme
+  as the f32 path, each solve ``mixed_ir_cycles`` refinement cycles around
+  the fused CUDA kernels K1 and K2 (``ops/cg.py``, ``ops/fused_cg.py``);
+* legacy, everywhere else: float32 inner CG with the fused local Helmholtz
+  kernel K4 (``ops/mixed.py``) on the ``'laplacian'`` scheme.
 
 The tangent step (``stepper/linearized.py``) is the same :meth:`_core` run
 with the explicit term linearized about a frozen base and the Dirichlet lift
@@ -38,6 +45,7 @@ import torch
 from ..config import SolverConfig
 from ..ops.cg import cg_solve
 from ..ops.elliptic import elliptic_solve
+from ..ops.exchange import shift_decomposes
 from ..ops.mixed import MixedPrecision, elliptic_solve_mixed
 from .state import FlowState, initial_state
 
@@ -54,24 +62,21 @@ _EXT = {
 }
 
 
-def _scheme(sem, solver: SolverConfig, mixed_precision: bool) -> str:
+def _fused_ir(sem, solver: SolverConfig) -> bool:
+    """Whether ``mixed_precision`` takes the fused-IR path, as the JAX
+    constructor decides it: a 2-D ``'pnpn2'`` step with ``fused_solves`` on
+    a mesh whose exchange shift-decomposes."""
+    return (sem.ndim == 2 and solver.pressure_operator == "pnpn2"
+            and solver.fused_solves and shift_decomposes(sem))
+
+
+def _scheme(sem, solver: SolverConfig, legacy_mixed: bool) -> str:
     """The pressure scheme the JAX constructor picks, or raise where the
-    port does not implement it.  ``mixed_precision`` takes the legacy mixed
-    path, on ``'laplacian'``, wherever the JAX package does (3-D, or
-    without ``fused_solves``).  Every 2-D ``fused_solves`` + ``'pnpn2'``
-    combination raises: JAX takes its fused-IR path there when the mesh
-    shift-decomposes and the legacy path otherwise, and the port builds no
-    shift decomposition to tell the two apart."""
+    port does not implement it.  The legacy mixed path runs ``'laplacian'``
+    whatever ``pressure_operator`` says."""
     if solver.pressure_operator not in ("pnpn2", "laplacian", "consistent"):
         raise ValueError(f"unknown pressure_operator {solver.pressure_operator!r}")
-    if mixed_precision:
-        if (sem.ndim == 2 and solver.fused_solves
-                and solver.pressure_operator == "pnpn2"):
-            raise NotImplementedError(
-                "not ported: mixed_precision with fused_solves on a 2-D "
-                "'pnpn2' step, on any mesh; JAX takes its fused-IR path there "
-                "(ROADMAP item 8) when the mesh shift-decomposes"
-            )
+    if legacy_mixed:
         return "laplacian"
     if solver.pressure_operator == "consistent":
         raise NotImplementedError(
@@ -109,8 +114,6 @@ def _check_supported(solver: SolverConfig, u_bc_fn, scalar_diff) -> None:
         raise ValueError(f"unknown pressure_precond {solver.pressure_precond!r}")
     if solver.velocity_precond != "fdm":
         raise ValueError(f"unknown velocity_precond {solver.velocity_precond!r}")
-    if solver.bdf_order != 3:
-        raise NotImplementedError("only the BDF1->3 ramp (bdf_order=3) is ported")
 
 
 class NavierStokes:
@@ -129,16 +132,20 @@ class NavierStokes:
     sponge_ref : field toward which the sponge damps (None: no sponge term)
     solver : SolverConfig
     mixed_precision : f64 state, float32 inner solves with f64 iterative
-              refinement (``ops/mixed.py``).  As in the JAX package this
-              means the ``'laplacian'`` pressure scheme (an approximate
-              projection on the velocity GLL grid), whatever
-              ``solver.pressure_operator`` says; every 2-D
-              ``fused_solves`` + ``'pnpn2'`` combination raises (JAX takes
-              its fused-IR path there on shift-decomposable meshes; not
-              ported).
+              refinement.  On a 2-D ``'pnpn2'`` step with ``fused_solves``
+              on a shift-decomposable mesh this is the fused-IR path
+              (``_mixed_ir``): the PnPn-2 scheme, each solve
+              ``solver.mixed_ir_cycles`` cycles around K1/K2 run to 3e-6 at
+              caps ``min(velocity_maxiter, 100)`` and
+              ``min(pressure_maxiter, 150)``.  Elsewhere it is the legacy
+              path (``mixed``, ``ops/mixed.py``) on the ``'laplacian'``
+              scheme (an approximate projection on the velocity GLL grid),
+              whatever ``solver.pressure_operator`` says.
 
-    ``u_bc_fn`` and the scalar arguments of the JAX stepper are accepted so
-    a call written for it fails loudly here."""
+    ``SolverConfig.bdf_order`` is read nowhere, as in the JAX stepper: the
+    step always ramps BDF1 -> BDF3.  ``u_bc_fn`` and the scalar arguments
+    of the JAX stepper are accepted so a call written for it fails loudly
+    here."""
 
     def __init__(
         self,
@@ -154,7 +161,10 @@ class NavierStokes:
         scalar_diff: Optional[Tuple[float, ...]] = None,
     ):
         _check_supported(solver, u_bc_fn, scalar_diff)
-        self._scheme = _scheme(sem, solver, mixed_precision)
+        # fused-IR mixed precision, or the legacy path (ops/mixed.py)
+        self._mixed_ir = bool(mixed_precision) and _fused_ir(sem, solver)
+        legacy = bool(mixed_precision) and not self._mixed_ir
+        self._scheme = _scheme(sem, solver, legacy)
         self.sem = s = sem
         self.ndim = s.ndim
         self.nu = float(viscosity)
@@ -172,24 +182,33 @@ class NavierStokes:
 
         # legacy mixed precision (ops/mixed.py): f32 inner CG through the
         # fused local Helmholtz kernel K4, f64 refinement
-        self.mixed = MixedPrecision(s) if mixed_precision else None
+        self.mixed = MixedPrecision(s) if legacy else None
 
         if self._scheme == "pnpn2" and solver.pressure_precond == "block":
             s.setup_pressure_blocks()
 
-        # both inner solves as one CUDA kernel each (ops/fused_cg.py)
+        # both inner solves as one CUDA kernel each (ops/fused_cg.py); on the
+        # fused-IR path the f32 inner solves of refinement, run to the
+        # f32-reachable 3e-6 at bounded caps (refinement supplies the rest)
         self.fused_v = None
         self.fused_p = None
         if solver.fused_solves and self.mixed is None:
             from ..ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
 
-            self.fused_v = FusedHelmholtzCG(
-                s, s.vmask, maxiter=solver.velocity_maxiter, tol=solver.velocity_tol
-            )
+            if self._mixed_ir:
+                v_tol, v_cap = 3e-6, min(solver.velocity_maxiter, 100)
+                p_tol, p_cap = 3e-6, min(solver.pressure_maxiter, 150)
+            else:
+                v_tol, v_cap = solver.velocity_tol, solver.velocity_maxiter
+                p_tol, p_cap = solver.pressure_tol, solver.pressure_maxiter
+            self.fused_v = FusedHelmholtzCG(s, s.vmask, maxiter=v_cap, tol=v_tol,
+                                            ir=self._mixed_ir)
             self.fused_p = FusedPressureCG(
-                s, maxiter=solver.pressure_maxiter, tol=solver.pressure_tol,
-                project_mean=not s.has_pressure_dirichlet,
+                s, maxiter=p_cap, tol=p_tol,
+                project_mean=not s.has_pressure_dirichlet, ir=self._mixed_ir,
             )
+        # refinement cycles of both solves: 0 (one plain solve) off fused-IR
+        self._ir_cycles = int(solver.mixed_ir_cycles) if self._mixed_ir else 0
 
     # ------------------------------------------------------------------
     @property
@@ -334,6 +353,7 @@ class NavierStokes:
                 diag_local=None if fdm else self.nu * self._kdiag_local + h2 * s.bm,
                 fdm=(self.nu, h2) if fdm else None,
                 fused_solve=fused_v,
+                ir_cycles=self._ir_cycles,
             )
         ustar = w + u_bc
 
@@ -376,6 +396,7 @@ class NavierStokes:
                 (lambda r: self.fused_p.solve(r.contiguous()))
                 if self.fused_p is not None else None
             ),
+            ir_cycles=self._ir_cycles,
         )
         if x0p is not None:
             dp = dp + x0p

@@ -1,13 +1,15 @@
 """Profile the PyTorch port's hot calls on one NVIDIA GPU.
 
-    python3 profile_torch.py
+    python3 profile_torch.py [PATH ...]
 
 Profiles chip_smoke.py's paths: the flagship 50-step f32 matvec through K1
 and K2, the same operator's rmatvec (the adjoint: the backward pass of the
 tangent steps, K1 and K2 on the cotangents), one Arnoldi step of the
 stability analysis on it (a matvec, then the batched orthogonalization
-against k = 24 columns), then the 10-step mixed-precision cube matvec
-through K4.  After one warm-up call, one call runs under ``torch.profiler``
+against k = 24 columns), the 50-step fused-IR matvec on the same mesh (f64
+state, K1 and K2 as the inner solves of refinement, the example's
+``--precision mixed`` settings), then the 10-step mixed-precision cube
+matvec through K4.  PATH picks some of them by name (``PATHS``).  After one warm-up call, one call runs under ``torch.profiler``
 (CPU and CUDA activities).  Prints the wall time, the device-busy time (the union of the
 kernels' intervals) and the idle share, the number of device kernels, the
 device time by kernel name (and the port's own kernels, ``nsk`` in their
@@ -40,6 +42,7 @@ def busy_us(intervals) -> float:
 
 
 ARNOLDI_K = 24  # the stability API's k_dim in chip_smoke.py
+PATHS = ("cylinder", "cylinder rmatvec", "cylinder arnoldi step", "cylinder fused-IR", "cube")
 
 
 def build(path: str):
@@ -52,6 +55,16 @@ def build(path: str):
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda", 0)
+    if path == "cylinder fused-IR":
+        from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
+        from nekstab_next_tpu_torch.config import SolverConfig
+
+        case = CylinderCase(**cs.FLAGSHIP, device=dev, mixed_precision=True,
+                            solver=SolverConfig(**cs.MIXED))
+        base = case.uniform_flow()
+        op = LinearizedOperator(case.make_ns(), base, nsteps=cs.NSTEPS)
+        q = case.sem.vmask * base
+        return lambda: op.matvec(q), case.mesh.npoints * 2 * cs.NSTEPS
     if path.startswith("cylinder"):
         case = cs.make_case(torch.float32, cs.CAPS_F32, fused=True)
         base = case.uniform_flow()
@@ -137,7 +150,13 @@ def main() -> None:
     tag = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    for path in ("cylinder", "cylinder rmatvec", "cylinder arnoldi step", "cube"):
+    import sys
+
+    paths = sys.argv[1:] or PATHS
+    unknown = [p for p in paths if p not in PATHS]
+    if unknown:
+        raise SystemExit(f"profile_torch: unknown paths {unknown}; choose from {PATHS}")
+    for path in paths:
         profile(path, tag)
 
 

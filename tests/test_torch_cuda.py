@@ -121,6 +121,58 @@ def test_rmatvec_kernels_match_plain(case):
     assert rel(got, ref) < 1e-4
 
 
+# examples/cylinder_stability.py's --precision mixed solver (fused-IR path)
+MIXED = dict(pressure_tol=1e-8, velocity_tol=1e-9, pressure_maxiter=500,
+             velocity_maxiter=200, pressure_precond="block", fused_solves=True)
+
+
+def test_cg_kernels_take_f64_on_the_fused_ir_route(case):
+    # an f64 SEM: the kernels solve an f64 right-hand side at f32 (constants
+    # cast from the f64 factors) and return f64; the plain versions compute
+    # at f32 on the same constants
+    sem = CylinderCase(**MESH, device="cuda").sem
+    assert sem.dtype == torch.float64
+    rng = np.random.default_rng(2)
+    rhs_v = make_projector(sem, sem.vmask)(torch.as_tensor(
+        rng.standard_normal(tuple(sem.bm.shape) + (2,)), device="cuda"))
+    rhs_p = torch.as_tensor(rng.standard_normal(sem.p_shape), device="cuda")
+    k1 = FusedHelmholtzCG(sem, sem.vmask, maxiter=100, tol=3e-6, ir=True)
+    k2 = FusedPressureCG(sem, maxiter=150, tol=3e-6, ir=True)
+    for k, args, bound in ((k1, (rhs_v, 0.0167, 100.0), 1e-5), (k2, (rhs_p,), 1e-4)):
+        got, ref = k.solve(*args), k.plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype == torch.float64 and k.launches == 1
+        assert rel(got, ref) < bound
+    with pytest.raises(ValueError, match="float32"):
+        FusedPressureCG(sem, maxiter=150, tol=3e-6)
+
+
+def test_fused_ir_matvec_and_rmatvec_kernels_match_plain(case):
+    # the fused-IR tangent and adjoint: mixed_ir_cycles launches of each
+    # kernel per step; refined to f64 class, kernels and plain versions agree
+    # far below the f32 inner tolerance
+    cyl = CylinderCase(**MESH, device="cuda", mixed_precision=True,
+                       solver=SolverConfig(**MIXED))
+    ns = cyl.make_ns()
+    assert ns._mixed_ir
+    cycles = ns.solver.mixed_ir_cycles
+    op = LinearizedOperator(ns, cyl.uniform_flow(), nsteps=3)
+    q = cyl.sem.vmask * torch.as_tensor(
+        np.random.default_rng(1).standard_normal(tuple(cyl.sem.bm.shape) + (2,)),
+        device="cuda")
+    got_m = op.matvec(q)
+    assert ns.fused_v.launches == 3 * cycles and ns.fused_p.launches == 3 * cycles
+    op.rmatvec(q)
+    ns.fused_v.launches = ns.fused_p.launches = 0
+    got_r = op.rmatvec(q)
+    torch.cuda.synchronize()
+    assert ns.fused_v.launches == 3 * cycles and ns.fused_p.launches == 3 * cycles
+    assert got_m.dtype == got_r.dtype == torch.float64
+    ns.fused_v.solve, ns.fused_p.solve = ns.fused_v.plain, ns.fused_p.plain
+    assert rel(got_m, op.matvec(q)) < 1e-8
+    assert rel(got_r, op.rmatvec(q)) < 1e-8
+
+
 @pytest.mark.parametrize("order", [4, 7])
 def test_kernels_at_other_orders(case, order):
     # the kernels are templated on n = order + 1; the flagship runs n = 7.

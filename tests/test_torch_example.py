@@ -66,12 +66,25 @@ def test_example_runs_to_the_end(tmp_path, monkeypatch):
     assert written == expected
 
 
-def test_example_mixed_precision_raises(tmp_path, monkeypatch):
+def test_example_mixed_precision_runs_to_the_end(tmp_path, monkeypatch, capsys):
+    # the JAX script's two-phase route: the f32 warm phase on the fused
+    # path, then the fused-IR stepper for the Newton polish and the eigen
+    # stages (here the kernels' plain versions: CPU tensors)
     example = load_example()
+    monkeypatch.setitem(example.PRESETS, "quick", TINY)
+    monkeypatch.setenv("NEKSTAB_CPU", "1")
     monkeypatch.setattr(sys, "argv", ["cylinder_stability.py", "--outdir", str(tmp_path),
+                                      "--reynolds", "1", "--tol", "1",
                                       "--precision", "mixed"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        example.main()
+    example.main()
+    out = capsys.readouterr().out
+    assert "f32 DNS settle" in out and "f32 Newton warm" in out
+    with open(tmp_path / "summary.json") as f:
+        summary = json.load(f)
+    assert summary["precision"] == "mixed" and summary["newton_residual"] < 1e-9
+    for mode in ("direct", "adjoint"):
+        assert summary[mode]["n_matvecs"] == TINY["k_dim"]
+        assert all(np.isfinite(v) for v in summary[mode].values())
 
 
 def test_pipeline_imports_no_jax():
@@ -81,7 +94,8 @@ def test_pipeline_imports_no_jax():
         "import nekstab_next_tpu_torch.algorithms.stability, "
         "nekstab_next_tpu_torch.algorithms.newton, "
         "nekstab_next_tpu_torch.postproc.sensitivity, nekstab_next_tpu_torch.krylov, "
-        "nekstab_next_tpu_torch.io, nekstab_next_tpu_torch.utils\n"
+        "nekstab_next_tpu_torch.io, nekstab_next_tpu_torch.utils, "
+        "nekstab_next_tpu_torch.ops.exchange, nekstab_next_tpu_torch.ops.fused_cg\n"
         f"spec = importlib.util.spec_from_file_location('ex', {SCRIPT!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"

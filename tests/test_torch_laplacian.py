@@ -155,9 +155,23 @@ def test_path_choice_follows_jax(dim, cfg, mixed):
     assert tuple(st.u.shape[-1:]) == (dim,) and tuple(st.p.shape) == tuple(sem.bm.shape)
 
 
+def test_fused_ir_path_on_the_taylor_green_box():
+    # 2-D 'pnpn2' + fused_solves + mixed: the box's exchange shift-decomposes,
+    # so JAX takes its fused-IR path (f64 state on the PnPn-2 step, K1/K2
+    # as the inner solves of refinement), and so does the port
+    jsem = taylor_green()[0]
+    cfg = dict(fused_solves=True)
+    jns = JaxNavierStokes(jsem, viscosity=0.05, dt=0.01, solver=JaxSolverConfig(**cfg),
+                          mixed_precision=True)
+    sem = _port_sem(2)
+    ns = NavierStokes(sem, viscosity=0.05, dt=0.01, solver=SolverConfig(**cfg),
+                      mixed_precision=True)
+    assert jns._mixed_ir and ns._mixed_ir and ns.mixed is None
+    assert ns._scheme == jns._scheme == "pnpn2" and ns.p_shape == sem.p_shape
+    assert ns.fused_v is not None and ns.fused_p.project_mean
+
+
 @pytest.mark.parametrize("dim,cfg,mixed,match", [
-    # JAX takes its fused-IR path here (ROADMAP item 8): the port raises
-    (2, dict(fused_solves=True), True, "fused-IR"),
     (3, dict(), False, "ROADMAP item 15"),              # 3-D PnPn-2
     (2, dict(pressure_operator="consistent"), False, "consistent"),
     (3, dict(pressure_operator="laplacian", fused_solves=True), False, "fused_solves"),

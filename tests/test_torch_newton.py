@@ -63,11 +63,11 @@ def runs():
     calls = []
     got = newton_krylov(ns, torch.as_tensor(u0), cfg=NewtonConfig(**NEWTON),
                         callback=lambda *a: calls.append(a), **kw)
-    return ref, got, calls, exact
+    return ref, got, calls, exact, ns, u0
 
 
 def test_newton_matches_jax(runs):
-    ref, got, calls, exact = runs
+    ref, got, calls, exact = runs[:4]
     assert ref.converged and got.converged
     assert got.iterations == ref.iterations and got.n_matvecs == ref.n_matvecs
     assert calls == got.history
@@ -90,9 +90,23 @@ def test_newton_config_matches_jax():
     assert dataclasses.asdict(NewtonConfig()) == dataclasses.asdict(JaxNewtonConfig())
 
 
-@pytest.mark.parametrize("kw,item", [(dict(upo=True), "item 12"), (dict(forced=True), "item 12"),
-                                     (dict(cfg=NewtonConfig(finite_difference=True)), "item 6")],
-                         ids=["upo", "forced", "finite-difference"])
+@pytest.mark.parametrize("kw,item", [(dict(upo=True), "item 12"), (dict(forced=True), "item 12")],
+                         ids=["upo", "forced"])
 def test_unported_newton_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         newton_krylov(None, None, 1.0, 1, **kw)
+
+
+def test_finite_difference_is_ignored_as_in_jax(runs):
+    # JAX's newton_krylov never reads NewtonConfig.finite_difference: Newton
+    # takes the exact tangent either way, so the history is the default's,
+    # bit for bit (two iterations on a 2-step horizon, GMRES k_dim 3, one
+    # cycle: the test's time)
+    ns, u0 = runs[4], runs[5]
+    kw = dict(horizon=0.02, nsteps=2, k_dim=3)
+    cfg = dict(NEWTON, max_iter=2, gmres_restarts=1)
+    default = newton_krylov(ns, torch.as_tensor(u0), cfg=NewtonConfig(**cfg), **kw)
+    fd = newton_krylov(ns, torch.as_tensor(u0),
+                       cfg=NewtonConfig(**cfg, finite_difference=True), **kw)
+    assert len(fd.history) == 2 and fd.history == default.history
+    assert fd.n_matvecs == default.n_matvecs and torch.equal(fd.u, default.u)

@@ -15,6 +15,9 @@ import torch
 
 from nekstab_next_tpu.cases.cylinder import CylinderCase as JaxCylinderCase
 from nekstab_next_tpu.config import SolverConfig as JaxSolverConfig
+from nekstab_next_tpu.mesh.cylinder import cylinder_mesh as jax_cylinder_mesh
+from nekstab_next_tpu.ops import SEM as JaxSEM
+from nekstab_next_tpu.stepper import NavierStokes as JaxNavierStokes
 from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
 from nekstab_next_tpu_torch.config import SolverConfig
 from nekstab_next_tpu_torch.interop import sem_arrays, sem_from_arrays
@@ -120,8 +123,6 @@ def test_propagator_is_advance():
 
 # every option the port does not implement raises where it is read
 UNSUPPORTED = {
-    # 2-D fused_solves + 'pnpn2' + mixed is JAX's fused-IR path (ROADMAP 8)
-    "mixed_precision": dict(kw=dict(mixed_precision=True), cfg=dict(fused_solves=True)),
     "u_bc_fn": dict(kw=dict(u_bc_fn=lambda t: 0.0)),
     "scalars": dict(kw=dict(scalar_diff=(0.01,))),
     "lanes_layout": dict(cfg=dict(lanes_layout=True)),
@@ -133,7 +134,6 @@ UNSUPPORTED = {
     "schwarz": dict(cfg=dict(pressure_precond="schwarz")),
     "velocity_block": dict(cfg=dict(velocity_precond="block")),
     "pressure_operator": dict(cfg=dict(pressure_operator="consistent")),
-    "bdf_order": dict(cfg=dict(bdf_order=2)),
 }
 
 
@@ -153,3 +153,46 @@ def test_fused_solves_raise_outside_kernel_scope():
     with pytest.raises(ValueError, match="order"):  # n = 10: no 64-thread slot
         CylinderCase(nr=2, ntheta=4, order=9, dtype=torch.float32, device="cpu",
                      solver=SolverConfig(fused_solves=True)).make_ns()
+
+
+def test_bdf_order_is_ignored_as_in_jax():
+    # JAX reads SolverConfig.bdf_order nowhere and always ramps BDF1 -> 3:
+    # bdf_order=2 steps bit for bit as the default
+    steps = []
+    for order in (3, 2):
+        case = CylinderCase(nr=2, ntheta=4, order=4, device="cpu",
+                            solver=SolverConfig(**TIGHT, bdf_order=order))
+        ns = case.make_ns()
+        steps.append(ns.advance(ns.make_state(case.uniform_flow()), 4))
+    assert torch.equal(steps[0].u, steps[1].u) and torch.equal(steps[0].p, steps[1].p)
+
+
+def shuffled(mesh, seed: int = 0):
+    """The mesh with its elements in a seeded random order: the same
+    geometry, a numbering whose exchange does not shift-decompose."""
+    perm = np.random.default_rng(seed).permutation(mesh.nelem)
+    return dataclasses.replace(mesh, **{
+        f.name: getattr(mesh, f.name)[perm] for f in dataclasses.fields(mesh)
+        if isinstance(getattr(mesh, f.name), np.ndarray)})
+
+
+@pytest.mark.parametrize("numbering", ["decomposable", "shuffled"])
+def test_mixed_precision_takes_fused_ir_where_jax_does(numbering):
+    # 2-D 'pnpn2' + fused_solves + mixed_precision: JAX's fused-IR path on a
+    # mesh whose exchange shift-decomposes, its legacy path elsewhere
+    pick = (lambda m: m) if numbering == "decomposable" else shuffled
+    cfg = dict(pressure_precond="block", fused_solves=True)
+    jns = JaxNavierStokes(JaxSEM(pick(jax_cylinder_mesh(**MESH))), viscosity=0.01, dt=0.01,
+                          solver=JaxSolverConfig(**cfg), mixed_precision=True)
+    sem = SEM(pick(cylinder_mesh(**MESH)), device="cpu")
+    ns = NavierStokes(sem, viscosity=0.01, dt=0.01, solver=SolverConfig(**cfg),
+                      mixed_precision=True)
+    assert ns._mixed_ir == jns._mixed_ir == (numbering == "decomposable")
+    assert ns._scheme == jns._scheme and ns.p_shape == tuple(jns.p_shape)
+    if ns._mixed_ir:
+        assert ns.mixed is None and ns.p_shape == sem.p_shape
+        assert ns.fused_v is not None and ns.fused_p is not None
+        assert ns._ir_cycles == SolverConfig().mixed_ir_cycles == 2
+    else:
+        assert ns.mixed is not None and ns._scheme == "laplacian"
+        assert ns.fused_v is None and ns.fused_p is None and ns._ir_cycles == 0
