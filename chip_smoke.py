@@ -46,7 +46,19 @@ source, sm_90a, all at once) and drives:
    CG iterations, the adjoint identity, the saved modes' eigen-residuals
    under the fused-IR operators at 540 steps (bound 1e-4), the step,
    matvec and inner-solve times beside the f32 and f64 steps, and the
-   projected time of each preset's eigen stages on this path.
+   projected time of each preset's eigen stages on this path;
+5. the backward-facing step (``examples_torch/bfs_transient_growth.py``'s
+   barkley preset: 320 elements at order 5 graded into the re-entrant
+   corner, the reference's sponges): the f64 ``'schwarz'`` set-up (colours,
+   extraction and inversion times) and its pressure CG iterations to 1e-5
+   with face and node patches; one f64 BDF1 step with ``'schwarz'``
+   against one with ``'fdm'`` on the quick preset; on the ``--fused`` f32
+   route of ``tools_torch/bfs_tg.py`` about ``bfs_out/bfs_march.npz``,
+   K1 and K2 against their plain versions on three steps' solves (each
+   solve's iterations, flagged at its cap) and a 5-step matvec, the step
+   time, and G(1.723) through K1/K2 (220 steps a matvec, k_dim 16, tol
+   1e-4) against the TPU's 6.304672 (within 5e-3); and three BoostConv
+   cycles in f64 from the march.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every phase is fatal on failure.  Imports nothing
@@ -59,8 +71,10 @@ for K1 and K2 also ``per_iter_ms``, ``phases``, the grid barriers the
 timed solve crossed, ``rmatvec_launches``, the launches in one
 rmatvec's backward, and ``fused_ir``: launches a fused-IR step, matvec,
 rmatvec backward and eigen-residual run, iterations per inner solve, and
-one BDF3 inner solve's kernel and plain times; K4 once per cube shape,
-with its ``shape``), the
+one BDF3 inner solve's kernel and plain times; and ``bfs``: launches in
+the G(1.723) run, max abs error against the plain version on the step
+mesh, iterations of each recorded solve, ``bdf3_solve``: one BDF3
+solve's kernel and plain times, iterations and bound, and the step time; K4 once per cube shape, with its ``shape``), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
@@ -131,6 +145,20 @@ EIGS = dict(k_dim=24, nev=2, max_restarts=1)
 MIXED = dict(pressure_tol=1e-8, velocity_tol=1e-9, pressure_maxiter=500,
              velocity_maxiter=200, pressure_precond="block", fused_solves=True)
 ORTHO_K = (24, 128)
+# the backward-facing step: examples_torch/bfs_transient_growth.py's barkley
+# preset (320 elements at order 5, graded into the re-entrant corner, the
+# reference's sponges), its f32 base flow marched on the TPU and the TPU's
+# transient growth through the fused kernels (tools/bfs_tpu_tg.py --fused)
+BFS_EXAMPLE = "examples_torch/bfs_transient_growth.py"
+BFS_MARCH = "bfs_out/bfs_march.npz"
+BFS_G = ("bfs_out/growth_fused_check.json", "bfs_out/growth.json")  # fused, 'schwarz'
+BFS_T = 1.723
+BFS_TG = dict(nsv=1, k_dim=16, tol=1e-4)  # bfs_tg.py --fused's svds
+BFS_ITERS = {"face": 55, "node": 50}  # 'schwarz' CG iterations to 1e-5, at most
+BFS_TIGHT = dict(pressure_tol=1e-10, velocity_tol=1e-10, pressure_maxiter=3000,
+                 velocity_maxiter=1000)
+BFS_MATVEC_STEPS = 5
+BFS_BOOST = dict(skip=50, subspace=12, cycles=3)
 # published H100 SXM peaks: device memory and float32 outside the tensor
 # cores
 HBM_BYTES_PER_S = 3.35e12
@@ -929,6 +957,204 @@ def fused_ir_phase(tag: str, dev, pipe: dict) -> dict:
             "path": path, "iterations": iters, "solve": solve, "ms": ms}
 
 
+def load_bfs_example():
+    """examples_torch/bfs_transient_growth.py as a module: its presets,
+    build_case and f32_solver."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BFS_EXAMPLE)
+    spec = importlib.util.spec_from_file_location("bfs_transient_growth_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def bfs_phase(tag: str, dev) -> dict:
+    """The backward-facing step at the barkley preset: the f64 'schwarz'
+    set-up and its pressure iterations, the 'schwarz' step against the
+    'fdm' one on the quick preset, K1/K2 against their plain versions on
+    the graded mesh (one step's solves and a 5-step matvec of the --fused
+    f32 route), G(1.723) through K1/K2 against the TPU's value, and a few
+    BoostConv cycles in f64; fails on any check.  Returns the numbers the
+    kernels line needs."""
+    import torch
+    from nekstab_next_tpu_torch.algorithms import boostconv_dns, transient_growth_analysis
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.io import load_field
+    from nekstab_next_tpu_torch.ops.cg import pcg
+    from nekstab_next_tpu_torch.ops.schwarz import (
+        build_p0_coarse, build_pressure_patches, element_coupling_colors, extract_sparse_E,
+        make_pressure_operator, p0_coarse_apply, patch_apply)
+    from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ex = load_bfs_example()
+    P = ex.PRESETS["barkley"]
+
+    # ---- B1. the f64 'schwarz' set-up and its pressure iterations --------
+    case64 = ex.build_case(P, sponge=False, device=dev,
+                           solver=SolverConfig(pressure_precond="schwarz"))
+    s64 = case64.sem
+    gid = s64.gid_np.reshape(s64.nelem, -1)
+    ncol = {d: int(element_coupling_colors(gid, distance=d).max()) + 1 for d in (1, 2)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    B = extract_sparse_E(s64)
+    torch.cuda.synchronize()
+    t_extract = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    patches = {adj: build_pressure_patches(s64, weighted=False, B=B, adjacency=adj)
+               for adj in ("face", "node")}
+    t_patches = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Acinv = torch.as_tensor(build_p0_coarse(s64, B=B), device=dev)
+    t_p0 = time.perf_counter() - t0
+    at_corner = (np.abs(case64.mesh.x) < 1e-12) & (np.abs(case64.mesh.y) < 1e-12)
+    corner = int(np.bincount(gid.reshape(-1))[gid.reshape(-1)[at_corner.reshape(-1)][0]])
+    log(f"bfs: barkley preset, {s64.nelem} elements, n={s64.n}, {s64.pc_nc} coarse vertices "
+        f"(elements at the step corner: {corner}), dt={case64.dt:.6g}; f64 'schwarz' set-up: "
+        f"{ncol[2]} distance-2 colours ({ncol[1]} at distance 1), {len(B)} blocks of E "
+        f"extracted in {t_extract:.2f} s, face and node patches inverted in {t_patches:.2f} s "
+        f"(sizes {patches['face'][1].shape[1]}, {patches['node'][1].shape[1]}), P0 coarse "
+        f"inverse in {t_p0:.2f} s")
+    E_op = make_pressure_operator(s64)
+    b = torch.as_tensor(np.random.default_rng(7).standard_normal(s64.p_shape), device=dev)
+    for adj, cap in BFS_ITERS.items():
+        def M(r, pt=patches[adj]):
+            z = patch_apply(*pt, r) + p0_coarse_apply(Acinv, r)
+            return z + s64.restrict_p(s64.coarse_apply_pressure(s64.lift_p(r)))
+
+        x, k = pcg(E_op, b, precond=M, tol=1e-5, maxiter=500, return_iters=True)
+        r_res = float((b - E_op(x)).norm() / b.norm())
+        log(f"bfs: f64 pressure CG to 1e-5 on seeded noise, 'schwarz' {adj} patches: {k} "
+            f"iterations (bound {cap}), residual {r_res:.3e}")
+        if not (k <= cap and r_res < 2e-5):
+            fail(f"'schwarz' {adj} patches: {k} iterations, residual {r_res:.3e}")
+    s64.setup_pressure_blocks()
+    k_block = pcg(E_op, b, precond=s64.pressure_precond_block, tol=1e-5, maxiter=2000,
+                  return_iters=True)[1]
+    log(f"bfs: the same solve with 'block' (K2's preconditioner): {k_block} iterations")
+
+    # ---- B2. 'schwarz' against 'fdm': one BDF1 step on the quick preset --
+    steps = {}
+    for pc in ("schwarz", "fdm"):
+        qc = ex.build_case(ex.PRESETS["quick"], device=dev,
+                           solver=SolverConfig(**BFS_TIGHT, pressure_precond=pc))
+        nsq = qc.make_ns()
+        t0 = time.perf_counter()
+        steps[pc] = nsq.step(nsq.make_state(qc.initial_flow())).u
+        torch.cuda.synchronize()
+        steps[pc + "_s"] = time.perf_counter() - t0
+    d_step = float((steps["schwarz"] - steps["fdm"]).abs().max())
+    log(f"bfs: quick preset ({qc.mesh.nelem} elements), one f64 BDF1 step at 1e-10 "
+        f"tolerances, 'schwarz' vs 'fdm': max abs {d_step:.3e} (bound 1e-7); "
+        f"{steps['schwarz_s']:.2f} s and {steps['fdm_s']:.2f} s")
+    if not (d_step < 1e-7):
+        fail(f"'schwarz' step against the 'fdm' step: {d_step:.3e}")
+
+    # ---- B3. the --fused f32 route: K1/K2 against their plain versions --
+    bf = load_field(os.path.join(root, BFS_MARCH))
+    case = ex.build_case(P, dtype=torch.float32, solver=ex.f32_solver(True), device=dev)
+    sem = case.sem
+    if bf.u.shape != tuple(sem.bm.shape) + (2,) or not ex.same_mesh(
+            bf.meta, ex.mesh_fingerprint(case, P)):
+        fail(f"{BFS_MARCH} (meta {bf.meta}) is not on the barkley mesh")
+    base = torch.as_tensor(bf.u, dtype=torch.float32, device=dev)
+    ns = case.make_ns(sponge_ref=base)
+    fv, fp = ns.fused_v, ns.fused_p
+    log(f"bfs: {BFS_MARCH} (TPU f32 march, residual {bf.meta['residual']:.3e}) on the "
+        f"--fused f32 route: K1 cap {fv.maxiter} tol {fv.tol:g}, K2 cap {fp.maxiter} tol "
+        f"{fp.tol:g}, sponge toward the base")
+    calls = []
+    with recording_solves(ns, calls):
+        st = ns.advance(ns.make_state(base), 3)
+    torch.cuda.synchronize()
+    err = {"fused_helmholtz_cg": 0.0, "fused_pressure_cg": 0.0}
+    bound = {"fused_helmholtz_cg": 1e-5, "fused_pressure_cg": 1e-4}
+    caps = {"fused_helmholtz_cg": fv.maxiter, "fused_pressure_cg": fp.maxiter}
+    for i, (name, rhs, args, it) in enumerate(calls):
+        k = fv if name == "fused_helmholtz_cg" else fp
+        got, (ref, it_p) = k.solve(rhs, *args), k.plain(rhs, *args, return_iters=True)
+        torch.cuda.synchronize()
+        r = rel(got, ref)
+        err[name] = max(err[name], float((got - ref).abs().max()))
+        log(f"bfs: step {i // 2 + 1} {name}: kernel vs plain rel {r:.3e} (bound "
+            f"{bound[name]:g}), {it} iterations (plain {it_p}, cap {caps[name]})"
+            + (" AT ITS CAP" if it >= caps[name] else "") + f", digest {digest(got)}")
+        if not (r < bound[name]):
+            fail(f"{name} on the step mesh: rel {r:.3e} against its plain version")
+    iterations = {n: [c[3] for c in calls if c[0] == n] for n in err}
+    op = LinearizedOperator(ns, base, nsteps=BFS_MATVEC_STEPS)
+    q = sem.vmask * base  # a smooth input, as the flagship matvec's
+    out_k = op.matvec(q)
+    with plain_solves(ns):
+        out_p = op.matvec(q)
+    r_mv = rel(out_k, out_p)
+    log(f"bfs: {BFS_MATVEC_STEPS}-step f32 matvec through K1/K2 vs the plain versions: rel "
+        f"{r_mv:.3e} (bound 1e-3)")
+    if not (bool(torch.isfinite(out_k).all()) and r_mv < 1e-3):
+        fail(f"step-mesh matvec through the kernels: rel {r_mv:.3e}")
+    state = {"s": st}
+
+    def step():
+        state["s"] = ns.step(state["s"])
+    step_ms = cuda_ms(step, 10)
+    solve = {}  # the last (BDF3) step's solves
+    for name, rhs, args, it in calls[-2:]:
+        k = fv if name == "fused_helmholtz_cg" else fp
+        flops = (k1_flops(sem.nelem, sem.n, 2, it) if k is fv
+                 else k2_flops(sem.nelem, sem.n, sem.pc_nc, it))
+        solve[name] = {"ms": kernel_ms(lambda: k.solve(rhs, *args), 10),
+                       "plain_ms": cuda_ms(lambda: k.plain(rhs, *args), 3), "iterations": it,
+                       **roofline(nbytes(rhs, rhs, *k._dev.values()), flops)}
+        log(f"timing {tag} bfs one BDF3 {name} solve: kernel {solve[name]['ms']:.4f} ms "
+            f"at {it} iterations, plain {solve[name]['plain_ms']:.4f} ms, bound "
+            f"{solve[name]['bound_ms']:.4f} ms ({solve[name]['bound_by']})")
+    log(f"timing {tag} bfs --fused f32 step: {step_ms:.2f} ms")
+
+    # ---- B4. G(1.723) through K1/K2 ---------------------------------------
+    with open(os.path.join(root, BFS_G[0])) as f:
+        g_fused = json.load(f)["points"][0]
+    with open(os.path.join(root, BFS_G[1])) as f:
+        g_schwarz = next(pt for pt in json.load(f)["points"] if pt["t"] == BFS_T)
+    nsteps = max(int(round(BFS_T / case.dt)), 1)
+    fv.launches = fp.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = transient_growth_analysis(ns, base, horizon=BFS_T, nsteps=nsteps, **BFS_TG)
+    torch.cuda.synchronize()
+    t_tg = time.perf_counter() - t0
+    launches = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+    G = float(res.gains[0])
+    gap = G / g_fused["G"] - 1.0
+    log(f"bfs: G({BFS_T}) through K1/K2 ({nsteps} steps a matvec, dt {case.dt:.7g}, "
+        f"k_dim {BFS_TG['k_dim']}, tol {BFS_TG['tol']:g}) = {G:.9f}; TPU fused "
+        f"{g_fused['G']:.9f} ({BFS_G[0]}): rel {gap:+.3e} (bound 5e-3); TPU 'schwarz' "
+        f"{g_schwarz['G']:.9f}: rel {G / g_schwarz['G'] - 1.0:+.3e}; svds residual "
+        f"{float(res.residuals[0]):.3e}, {res.n_matvecs} matvecs + rmatvecs, launches "
+        f"{launches}, {t_tg:.1f} s")
+    if not (abs(gap) < 5e-3 and min(launches.values()) > 0):
+        fail(f"G({BFS_T}) = {G} against the TPU's {g_fused['G']}: rel {gap:.3e}, "
+             f"launches {launches}")
+
+    # ---- B5. BoostConv cycles in f64 'schwarz' from the march ---------------
+    ns_b = case64.make_ns()  # the example's f64 solver: 'schwarz', 1e-8 / 1e-9
+    hist = []
+    t0 = time.perf_counter()
+    boostconv_dns(ns_b, torch.as_tensor(bf.u, device=dev), skip=BFS_BOOST["skip"],
+                  subspace=BFS_BOOST["subspace"], tol=0.0,
+                  max_steps=BFS_BOOST["skip"] * BFS_BOOST["cycles"],
+                  callback=lambda n, r: hist.append(r))
+    t_boost = time.perf_counter() - t0
+    log(f"bfs: BoostConv (skip {BFS_BOOST['skip']}, subspace {BFS_BOOST['subspace']}) in "
+        f"f64 'schwarz' from {BFS_MARCH}: residuals "
+        + ", ".join(f"{r:.3e}" for r in hist) + f" ({t_boost:.1f} s)")
+    if not (len(hist) == BFS_BOOST["cycles"] and np.all(np.isfinite(hist))):
+        fail(f"BoostConv residual history {hist}")
+    return {"launches": launches, "max_abs_err": err, "iterations": iterations,
+            "solve": solve, "step_ms": step_ms}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device -----------------------------------------------------
@@ -1194,6 +1420,9 @@ def main() -> None:
     # ==== the fused-IR mixed-precision path (K1, K2 under f64 state) ======
     ir = fused_ir_phase(tag, dev, pipe)
 
+    # ==== the backward-facing step: 'schwarz', K1/K2 on a graded mesh ====
+    bfs = bfs_phase(tag, dev)
+
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
          "launches": launches[name], "max_abs_err": err[name],
@@ -1205,7 +1434,10 @@ def main() -> None:
                       "matvec_launches": ir["matvec"][name],
                       "rmatvec_launches": ir["rmatvec"][name],
                       "path_launches": ir["path"][name],
-                      "iterations": ir["iterations"][name], **ir["solve"][name]}}
+                      "iterations": ir["iterations"][name], **ir["solve"][name]},
+         "bfs": {"launches": bfs["launches"][name], "max_abs_err": bfs["max_abs_err"][name],
+                 "iterations": bfs["iterations"][name], "bdf3_solve": bfs["solve"][name],
+                 "step_ms": bfs["step_ms"]}}
         for name in ("fused_helmholtz_cg", "fused_pressure_cg")
     ] + [
         # K4 once per cube shape: its launches on the cube matvec at that shape

@@ -11,13 +11,9 @@ Pipeline, as the JAX script's:
    files, the drag of the base flow, and a JSON summary with the JAX
    script's keys.
 
-Differences from the JAX script:
-
-* ``--precision f64`` runs the pressure solve with ``pressure_precond=
-  'block'`` where the JAX script uses ``'schwarz'``: the Schwarz
-  preconditioner is not ported yet (ROADMAP item 14).  Both solve the same
-  system to the same tolerances, so the converged answers agree to the
-  solver tolerance; only the iteration counts differ.
+``--precision f64`` (the default) preconditions the pressure solve with
+``'schwarz'`` (overlapping element patches + P0 and Q1 coarse levels,
+``ops/schwarz.py``), as the JAX script does.
 
 ``--precision mixed`` is the JAX script's production route, as there: a
 warm phase on the f32 fused kernels (K1/K2 at caps 16/10: the DNS settle
@@ -84,7 +80,7 @@ def main():
         SolverConfig(pressure_tol=1e-8, velocity_tol=1e-9,
                      pressure_maxiter=500, velocity_maxiter=200,
                      pressure_precond="block", fused_solves=True)
-        if mixed else SolverConfig(pressure_precond="block")
+        if mixed else SolverConfig(pressure_precond="schwarz")
     )
     case = CylinderCase(
         reynolds=args.reynolds, nr=P["nr"], ntheta=P["ntheta"],

@@ -1,6 +1,8 @@
+from .fixed_point import FixedPointResult, boostconv_dns, sfd, tdf
 from .newton import NewtonResult, newton_krylov
 from .stability import (
     StabilityResult,
+    TransientGrowthResult,
     gradient_energy_norm,
     linear_stability_analysis,
     transient_growth_analysis,
@@ -15,4 +17,9 @@ __all__ = [
     "gradient_energy_norm",
     "velocity_space",
     "StabilityResult",
+    "TransientGrowthResult",
+    "sfd",
+    "boostconv_dns",
+    "tdf",
+    "FixedPointResult",
 ]

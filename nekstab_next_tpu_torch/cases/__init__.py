@@ -1,4 +1,5 @@
+from .bfs import BackwardFacingStepCase
 from .cube import CubeRoughnessCase
 from .cylinder import CylinderCase
 
-__all__ = ["CubeRoughnessCase", "CylinderCase"]
+__all__ = ["BackwardFacingStepCase", "CubeRoughnessCase", "CylinderCase"]

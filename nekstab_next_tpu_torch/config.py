@@ -8,8 +8,7 @@ not implement (``stepper/navier_stokes.py`` ``NavierStokes``):
 
 * ``lanes_layout``, ``cg_fixed_iters`` and ``fused_pressure=False`` are TPU
   workarounds and are not ported;
-* ``pressure_precond='schwarz'``, ``velocity_precond='block'``,
-  ``pressure_operator='consistent'``, ``dealias=False`` and
+* ``pressure_operator='consistent'``, ``dealias=False`` and
   ``finite_difference`` are not ported yet;
 * ``fused_solves`` needs float32 fields, or ``mixed_precision``, where the
   kernels are the f32 inner solves of ``mixed_ir_cycles`` refinement
@@ -46,9 +45,9 @@ class SolverConfig:
     finite_difference: bool = False  # not ported
     fd_order: int = 2
     warm_start: bool = True  # residual-correction warm start of both solves
-    pressure_precond: str = "fdm"  # 'fdm' | 'block' ('schwarz' not ported)
-    pressure_patch_overlap: str = "face"  # 'schwarz' only
-    velocity_precond: str = "fdm"  # 'fdm' ('block' not ported)
+    pressure_precond: str = "fdm"  # 'fdm' | 'block' | 'schwarz' (ops/schwarz.py)
+    pressure_patch_overlap: str = "face"  # 'schwarz' patches: 'face' | 'node'
+    velocity_precond: str = "fdm"  # 'fdm' | 'block' (exact element blocks)
     pressure_direct: bool = False  # lanes path only (not ported)
     fused_solves: bool = False  # both inner solves as one CUDA kernel each (K1, K2)
     fused_pressure: bool = True  # False is a TPU-compiler workaround

@@ -23,16 +23,26 @@ import torch
 from .ops.core import FLOAT_KEYS, INT_KEYS, SEM
 from .ops.core3 import FLOAT_KEYS3, INT_KEYS3, SEM3
 
-SEM_ARRAY_KEYS = FLOAT_KEYS + INT_KEYS + ("pblock_inv",)
+# the preconditioners the JAX SEM builds on demand (None until built);
+# pschwarz is the (pidx, Pinv, w) tuple of its build_pressure_patches
+PRECOND_KEYS = ("pblock_inv", "pschwarz", "p0Acinv")
+SEM_ARRAY_KEYS = FLOAT_KEYS + INT_KEYS + PRECOND_KEYS
 SEM3_ARRAY_KEYS = FLOAT_KEYS3 + INT_KEYS3
 SEM_META_KEYS = ("nglobal", "has_pressure_dirichlet")
 
 
+def _host(v):
+    """numpy copies of an array or of a tuple of arrays; None stays None."""
+    if v is None:
+        return None
+    return tuple(np.asarray(x) for x in v) if isinstance(v, tuple) else np.asarray(v)
+
+
 def sem_arrays(jax_sem) -> dict:
     """The factor arrays (numpy) and metadata of a JAX ``SEM``, by
-    attribute name; ``pblock_inv`` is None until the JAX SEM has built it."""
-    arrays = {k: (None if getattr(jax_sem, k) is None else np.asarray(getattr(jax_sem, k)))
-              for k in SEM_ARRAY_KEYS}
+    attribute name; the :data:`PRECOND_KEYS` are None until the JAX SEM has
+    built them."""
+    arrays = {k: _host(getattr(jax_sem, k)) for k in SEM_ARRAY_KEYS}
     arrays.update({k: getattr(jax_sem, k) for k in SEM_META_KEYS})
     return arrays
 
@@ -42,12 +52,12 @@ def sem_from_arrays(arrays: dict, device=None,
     """The port's SEM from a dict of the JAX SEM's factor arrays (names as
     the JAX SEM's attributes: :data:`SEM_ARRAY_KEYS` plus
     :data:`SEM_META_KEYS`).  Float factors take ``dtype`` (float64 when
-    None); ``pblock_inv`` is installed as given when present."""
+    None); the :data:`PRECOND_KEYS` are installed as given when present (the
+    'schwarz' patches with their gather lists built from ``pidx``)."""
     missing = [k for k in FLOAT_KEYS + INT_KEYS + SEM_META_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"sem_from_arrays: missing {missing}")
-    a = {k: (v if k in SEM_META_KEYS or v is None else np.asarray(v))
-         for k, v in arrays.items()}
+    a = {k: (v if k in SEM_META_KEYS else _host(v)) for k, v in arrays.items()}
     return SEM.from_arrays(a, dtype=dtype, device=device)
 
 

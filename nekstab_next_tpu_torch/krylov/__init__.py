@@ -1,6 +1,7 @@
 from .arnoldi import arnoldi_factorization, arnoldi_step, orthogonalize
 from .gmres import gmres
 from .krylov_schur import EigenResult, eigs
+from .svd import SVDResult, svds, svds_normal
 from .vector import Basis, VectorSpace
 
 __all__ = [
@@ -12,4 +13,7 @@ __all__ = [
     "eigs",
     "EigenResult",
     "gmres",
+    "svds",
+    "svds_normal",
+    "SVDResult",
 ]

@@ -18,7 +18,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
 
 class VectorSpace:
@@ -74,7 +74,10 @@ class Basis:
         return tree_map(lambda B: B[j], self.Q)
 
     def _dots(self, w, ncols: int) -> torch.Tensor:
-        """<q_j, w> for j < ncols, as one batched reduction."""
+        """<q_j, w> for j < ncols, as one batched reduction (none for
+        ncols = 0: vmap cannot index into an empty batch)."""
+        if ncols == 0:
+            return tree_leaves(self.Q)[0].new_zeros(0)
         cols = tree_map(lambda B: B[:ncols], self.Q)
         return torch.func.vmap(lambda q: self.space.dot(q, w))(cols)
 

@@ -313,6 +313,24 @@ class SEM(SEMBase):
             None if pbi is None
             else torch.tensor(np.asarray(pbi), dtype=self.dtype, device=self.device),
         )
+        # 'schwarz': (pidx, Pinv, w, copies) of ops/schwarz.py
+        # build_pressure_patches and the P0 coarse inverse; velocity 'block':
+        # the block inverses by (h1, h2).  Built by the setup_* methods, or
+        # carried in from the JAX SEM's arrays (interop.py).
+        self.pschwarz = self.p0Acinv = None
+        self.vblock_inv = {}
+        if a.get("pschwarz") is not None:
+            from .schwarz import patch_copies
+
+            pidx, Pinv, w = (np.asarray(x) for x in a["pschwarz"])
+            f = lambda x: torch.tensor(x, dtype=self.dtype, device=self.device)
+            self.pschwarz = (
+                torch.as_tensor(pidx.astype(np.int64), device=self.device), f(Pinv), f(w),
+                torch.as_tensor(patch_copies(pidx, self.nelem * self.npr ** 2),
+                                device=self.device))
+        if a.get("p0Acinv") is not None:
+            self.p0Acinv = torch.tensor(np.asarray(a["p0Acinv"]), dtype=self.dtype,
+                                        device=self.device)
 
     # ------------------------------------------------------------------
     # derivatives
@@ -437,6 +455,40 @@ class SEM(SEMBase):
 
         z = block_apply(self.pblock_inv, r)
         return z + self.restrict_p(self.coarse_apply_pressure(self.lift_p(r)))
+
+    def setup_pressure_schwarz(self, adjacency: str = "face") -> None:
+        """Build the overlapping-patch + P0 coarse pressure preconditioner
+        once, from one sparse-E extraction shared by both levels; the
+        patches are built unweighted.  ``adjacency``: 'face' (an element and
+        its face neighbours) or 'node' (its node-sharing neighbours too)."""
+        if self.pschwarz is None:
+            from .schwarz import build_p0_coarse, build_pressure_patches, extract_sparse_E
+
+            B = extract_sparse_E(self)
+            self.pschwarz = build_pressure_patches(self, weighted=False, B=B,
+                                                   adjacency=adjacency)
+            self.p0Acinv = torch.as_tensor(build_p0_coarse(self, B=B), dtype=self.dtype,
+                                           device=self.device)
+
+    def pressure_precond_schwarz(self, r: torch.Tensor) -> torch.Tensor:
+        """Three-level preconditioner for E = D M^-1 D^T
+        (pressure_precond='schwarz'): the exact patch solves, the P0
+        element-constant coarse level and the Q1 vertex coarse level, added."""
+        from .schwarz import p0_coarse_apply, patch_apply
+
+        z = patch_apply(*self.pschwarz, r) + p0_coarse_apply(self.p0Acinv, r)
+        return z + self.restrict_p(self.coarse_apply_pressure(self.lift_p(r)))
+
+    def setup_velocity_blocks(self, h1: float, h2: float) -> torch.Tensor:
+        """Exact element-block preconditioner of the assembled velocity
+        Helmholtz P(h1 K + h2 B)P (velocity_precond='block'), built once per
+        (h1, h2)."""
+        key = (float(h1), float(h2))
+        if key not in self.vblock_inv:
+            from .schwarz import build_velocity_blocks
+
+            self.vblock_inv[key] = build_velocity_blocks(self, h1, h2)
+        return self.vblock_inv[key]
 
     def coarse_apply_pressure(self, r: torch.Tensor) -> torch.Tensor:
         """Q1 vertex coarse-grid correction (Nek's XXT coarse solve role);

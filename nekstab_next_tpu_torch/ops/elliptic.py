@@ -49,14 +49,12 @@ def elliptic_solve(
     ``project_mean``: remove the constant nullspace (pure-Neumann Poisson)
     ``fdm``        : (h1, h2) — FDM block preconditioner instead of Jacobi
     ``coarse``     : with ``fdm``, add the Q1 vertex coarse correction
+    ``vblocks``    : (ndim, nelem, nloc, nloc) exact velocity block inverses
+                     (ops/schwarz.py), used before ``fdm`` and Jacobi
     ``fused_solve``: the whole subspace CG as one call (ops/fused_cg.py)
     ``ir_cycles``  : with ``fused_solve``, that many cycles of iterative
                      refinement around it (ops/cg.py ``cg_solve``)
     """
-    if vblocks is not None:
-        raise NotImplementedError(
-            "velocity_precond='block' (exact velocity blocks) is not ported"
-        )
     P = make_projector(sem, mask)
 
     def A(x):
@@ -69,7 +67,16 @@ def elliptic_solve(
     def A_sub(x):
         return P(local_op(x))
 
-    if fdm is not None:
+    if vblocks is not None:
+        # exact element-block inverses of the assembled operator
+        # (ops/schwarz.py build_velocity_blocks), one batched matmul a
+        # component
+        from .schwarz import velocity_block_apply
+
+        def M_sub(r):
+            return P(velocity_block_apply(vblocks, r))
+
+    elif fdm is not None:
         h1, h2 = fdm
 
         def M_sub(r):

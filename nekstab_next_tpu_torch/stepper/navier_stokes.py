@@ -104,15 +104,15 @@ def _check_supported(solver: SolverConfig, u_bc_fn, scalar_diff) -> None:
         "SolverConfig.finite_difference": solver.finite_difference,
         "SolverConfig.dealias=False": not solver.dealias,
         "SolverConfig.fused_pressure=False": solver.fused_solves and not solver.fused_pressure,
-        "SolverConfig.pressure_precond='schwarz'": solver.pressure_precond == "schwarz",
-        "SolverConfig.velocity_precond='block'": solver.velocity_precond == "block",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError("not ported: " + ", ".join(bad))
-    if solver.pressure_precond not in ("fdm", "block"):
+    if solver.pressure_precond not in ("fdm", "block", "schwarz"):
         raise ValueError(f"unknown pressure_precond {solver.pressure_precond!r}")
-    if solver.velocity_precond != "fdm":
+    if solver.pressure_patch_overlap not in ("face", "node"):
+        raise ValueError(f"unknown pressure_patch_overlap {solver.pressure_patch_overlap!r}")
+    if solver.velocity_precond not in ("fdm", "block"):
         raise ValueError(f"unknown velocity_precond {solver.velocity_precond!r}")
 
 
@@ -184,8 +184,20 @@ class NavierStokes:
         # fused local Helmholtz kernel K4, f64 refinement
         self.mixed = MixedPrecision(s) if legacy else None
 
-        if self._scheme == "pnpn2" and solver.pressure_precond == "block":
-            s.setup_pressure_blocks()
+        # the exact-block preconditioners (ops/schwarz.py), built once here
+        if self._scheme == "pnpn2":
+            if solver.pressure_precond == "schwarz":
+                s.setup_pressure_schwarz(adjacency=solver.pressure_patch_overlap)
+            elif solver.pressure_precond == "block":
+                s.setup_pressure_blocks()
+        # velocity blocks for the final (BDF3) stage's h2 = (11/6)/dt; the
+        # two ramp steps see a mildly mismatched but SPD preconditioner
+        self._vblocks = None
+        if solver.velocity_precond == "block" and s.ndim == 3:
+            raise NotImplementedError(
+                "not ported: velocity_precond='block' in 3-D (ROADMAP item 15)")
+        if solver.velocity_precond == "block" and not mixed_precision:
+            self._vblocks = s.setup_velocity_blocks(self.nu, _BDF[3][0] / self.dt)
 
         # both inner solves as one CUDA kernel each (ops/fused_cg.py); on the
         # fused-IR path the f32 inner solves of refinement, run to the
@@ -352,6 +364,7 @@ class NavierStokes:
                 maxiter=self.solver.velocity_maxiter,
                 diag_local=None if fdm else self.nu * self._kdiag_local + h2 * s.bm,
                 fdm=(self.nu, h2) if fdm else None,
+                vblocks=self._vblocks,
                 fused_solve=fused_v,
                 ir_cycles=self._ir_cycles,
             )
@@ -381,9 +394,12 @@ class NavierStokes:
         rhs_p = -(g0 / dt) * s.div_to_p(ustar)
         if x0p is not None:
             rhs_p = rhs_p - E_op(x0p)
-        precond_p = (s.pressure_precond_block
-                     if self.solver.pressure_precond == "block"
-                     else s.pressure_precond_pnpn2)
+        if self.solver.pressure_precond == "schwarz":
+            precond_p = s.pressure_precond_schwarz
+        elif self.solver.pressure_precond == "block":
+            precond_p = s.pressure_precond_block
+        else:
+            precond_p = s.pressure_precond_pnpn2
         dp = cg_solve(
             E_op,
             rhs_p,

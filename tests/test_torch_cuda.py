@@ -353,3 +353,61 @@ def test_mixed_cube_matvec_kernel_matches_plain(case):
     ref = op.matvec(q)
     # both refine every solve to f64
     assert rel(got, ref) < 1e-9
+
+
+# a graded backward-facing step at order 5 (n = 6): the carved re-entrant
+# corner (a vertex of 3 elements) and the outflow pressure Dirichlet
+BFS_SMALL = dict(reynolds=500.0, order=5, elems_upstream=3, elems_downstream=8,
+                 elems_y=4, inflow_length=4.0, outflow_length=16.0, step_dx=0.22)
+
+
+def test_cg_kernels_on_the_step_mesh(case):
+    from nekstab_next_tpu_torch.cases.bfs import BackwardFacingStepCase
+
+    bfs = BackwardFacingStepCase(**BFS_SMALL, dtype=torch.float32, device="cuda")
+    sem = bfs.sem
+    assert sem.has_pressure_dirichlet and sem.n == 6
+    rng = np.random.default_rng(6)
+    rhs = make_projector(sem, sem.vmask)(torch.as_tensor(
+        rng.standard_normal(tuple(sem.bm.shape) + (2,)), dtype=torch.float32, device="cuda"))
+    k1 = FusedHelmholtzCG(sem, sem.vmask, maxiter=40, tol=1e-6)
+    h2 = (11.0 / 6.0) / bfs.dt
+    assert rel(k1.solve(rhs, 1.0 / 500.0, h2), k1.plain(rhs, 1.0 / 500.0, h2)) < 1e-5
+    rhs_p = torch.as_tensor(rng.standard_normal(sem.p_shape), dtype=torch.float32,
+                            device="cuda")
+    for maxiter, bound in ((350, 1e-4), (16, 1e-3)):
+        k2 = FusedPressureCG(sem, maxiter=maxiter, tol=1e-5)
+        assert rel(k2.solve(rhs_p), k2.plain(rhs_p)) < bound
+        assert k2.launches == 1
+    # three steps of the f32 route of tools_torch/bfs_march.py --fused; the
+    # solves stop at 1e-5/1e-6, so two f32 CG paths part at that level in
+    # every increment (the bound of chip_smoke.py's f32 matvec checks)
+    fused = BackwardFacingStepCase(**BFS_SMALL, dtype=torch.float32, device="cuda",
+                                   solver=SolverConfig(
+                                       pressure_tol=1e-5, velocity_tol=1e-6,
+                                       pressure_maxiter=350, velocity_maxiter=40,
+                                       pressure_precond="block", fused_solves=True))
+    ns = fused.make_ns()
+    u0 = fused.initial_flow()
+    got = ns.advance(ns.make_state(u0), 3).u
+    assert ns.fused_v.launches == 3 and ns.fused_p.launches == 3
+    ns.fused_v.solve, ns.fused_p.solve = ns.fused_v.plain, ns.fused_p.plain
+    assert rel(got, ns.advance(ns.make_state(u0), 3).u) < 1e-3
+
+
+def test_schwarz_apply_on_the_card_matches_the_cpu(case):
+    # the f64 'schwarz' preconditioner built on each device: the patch
+    # inverses come from the same host inversion, the applies agree to
+    # roundoff, and the card's apply (a gather, no atomics) is bit for bit
+    # reproducible
+    from nekstab_next_tpu_torch.cases.bfs import BackwardFacingStepCase
+
+    sems = [BackwardFacingStepCase(**BFS_SMALL, device=d).sem for d in ("cuda", "cpu")]
+    for s in sems:
+        s.setup_pressure_schwarz()
+    r = np.random.default_rng(7).standard_normal(sems[0].p_shape)
+    got, ref = (s.pressure_precond_schwarz(torch.as_tensor(r, device=s.device))
+                for s in sems)
+    assert rel(got.cpu(), ref) < 1e-12
+    assert torch.equal(got, sems[0].pressure_precond_schwarz(
+        torch.as_tensor(r, device="cuda")))

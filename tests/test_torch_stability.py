@@ -111,8 +111,8 @@ def test_cavity_adjoint_spectrum_equals_direct():
 
 def test_unported_analyses_raise(results):
     _, sem, _ = results
-    with pytest.raises(NotImplementedError, match="item 11"):
-        transient_growth_analysis(None, None, 1.0, 1)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        transient_growth_analysis(None, None, 1.0, 1, floquet=True)
     with pytest.raises(NotImplementedError, match="item 12"):
         linear_stability_analysis(None, None, 1.0, 1, floquet=True)
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -131,8 +131,6 @@ UNSUPPORTED = {
     "finite_difference": dict(cfg=dict(finite_difference=True)),
     "no_dealias": dict(cfg=dict(dealias=False)),
     "fused_pressure_off": dict(cfg=dict(fused_solves=True, fused_pressure=False)),
-    "schwarz": dict(cfg=dict(pressure_precond="schwarz")),
-    "velocity_block": dict(cfg=dict(velocity_precond="block")),
     "pressure_operator": dict(cfg=dict(pressure_operator="consistent")),
 }
 
@@ -144,6 +142,28 @@ def test_unsupported_option_raises(name):
     with pytest.raises(NotImplementedError):
         NavierStokes(sem, viscosity=0.01, dt=0.01,
                      solver=SolverConfig(**spec.get("cfg", {})), **spec.get("kw", {}))
+
+
+@pytest.mark.parametrize("cfg", [dict(pressure_precond="schwarz"),
+                                 dict(pressure_precond="schwarz", pressure_patch_overlap="node"),
+                                 dict(velocity_precond="block")],
+                         ids=["schwarz", "schwarz_node", "velocity_block"])
+def test_ported_preconditioners_are_built(cfg):
+    # once refused as not ported: the constructor builds them, as JAX's does
+    sem = SEM(cylinder_mesh(nr=2, ntheta=4, order=4), dtype=torch.float32, device="cpu")
+    ns = NavierStokes(sem, viscosity=0.01, dt=0.01, solver=SolverConfig(**cfg))
+    schwarz = cfg.get("pressure_precond") == "schwarz"
+    assert (sem.pschwarz is not None) == schwarz and (sem.p0Acinv is not None) == schwarz
+    assert (ns._vblocks is not None) == ("velocity_precond" in cfg)
+
+
+@pytest.mark.parametrize("cfg", [dict(pressure_precond="jacobi"),
+                                 dict(pressure_patch_overlap="edge"),
+                                 dict(velocity_precond="jacobi")])
+def test_unknown_preconditioner_names_raise(cfg):
+    sem = SEM(cylinder_mesh(nr=2, ntheta=4, order=4), dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        NavierStokes(sem, viscosity=0.01, dt=0.01, solver=SolverConfig(**cfg))
 
 
 def test_fused_solves_raise_outside_kernel_scope():
