@@ -58,7 +58,21 @@ source, sm_90a, all at once) and drives:
    solve's iterations, flagged at its cap) and a 5-step matvec, the step
    time, and G(1.723) through K1/K2 (220 steps a matvec, k_dim 16, tol
    1e-4) against the TPU's 6.304672 (within 5e-3); and three BoostConv
-   cycles in f64 from the march.
+   cycles in f64 from the march;
+6. periodic bases and forced response: on ``examples/cylinder_upo.py``'s
+   192-element Re = 100 mesh with its f32 K1/K2 solver, the period map of
+   ``upo_out/UPO_cyl_00001.npz`` over 1,604 steps, the 50-step orbit
+   tangent against the plain versions and f64 central differences, two
+   full-period Floquet matvecs on one operator (3 x 1,604 launches of each
+   kernel: the orbit is stored once), the orbit's neutral phase mode, the
+   f64 Floquet adjoint identity and the f32 Floquet rmatvec against the
+   plain versions (its backward's launches), and the example's projected
+   time; on ``examples/cylinder_resolvent_sweep.py``'s Re = 50 mesh, the
+   residual of ``resolvent_out/BF_cyl_00001.npz`` under the f64 plain
+   step, the forced tangent integration at omega = 0.78 against the plain
+   versions (64 steps) and over a whole period (2,176 launches of each),
+   its transpose identity in f64, and the projected time of an R(omega)
+   apply and of an svds.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every phase is fatal on failure.  Imports nothing
@@ -74,7 +88,11 @@ rmatvec backward and eigen-residual run, iterations per inner solve, and
 one BDF3 inner solve's kernel and plain times; and ``bfs``: launches in
 the G(1.723) run, max abs error against the plain version on the step
 mesh, iterations of each recorded solve, ``bdf3_solve``: one BDF3
-solve's kernel and plain times, iterations and bound, and the step time; K4 once per cube shape, with its ``shape``), the
+solve's kernel and plain times, iterations and bound, and the step time;
+and ``periodic``: launches on phase 6's run, max abs error against the
+plain versions there, the two orbit matvecs', the Floquet rmatvec
+backward's and the particular solution's launches, and the step, matvec
+and primal times; K4 once per cube shape, with its ``shape``), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
@@ -159,6 +177,24 @@ BFS_TIGHT = dict(pressure_tol=1e-10, velocity_tol=1e-10, pressure_maxiter=3000,
                  velocity_maxiter=1000)
 BFS_MATVEC_STEPS = 5
 BFS_BOOST = dict(skip=50, subspace=12, cycles=3)
+# periodic bases and forced response: examples/cylinder_upo.py's Re = 100
+# orbit (192 elements, f32 K1/K2 at caps 24/12) at the TPU run's period in
+# 1,604 steps, and its DNS length; examples/cylinder_resolvent_sweep.py's
+# Re = 50 mesh (grading 8) with the TPU's base flow, its f64 Newton
+# tolerances, and omega = 0.78 (2,176 steps a period), its forced
+# integration cut to 64 steps against the plain versions and 16 in f64
+UPO_DIR = "upo_out"
+UPO_MESH = dict(reynolds=100.0, nr=8, ntheta=24, order=6, outer_radius=20.0, grading=10.0)
+UPO_F32 = dict(pressure_tol=1e-5, velocity_tol=1e-6, pressure_maxiter=24, velocity_maxiter=12,
+               pressure_precond="block", fused_solves=True)
+UPO_STEPS = 1604
+UPO_DNS_TIME = 160.0
+SWEEP_DIR = "resolvent_out"
+SWEEP_MESH = dict(reynolds=50.0, nr=8, ntheta=24, order=6, outer_radius=20.0, grading=8.0)
+SWEEP_BF = dict(pressure_tol=1e-8, velocity_tol=1e-9, pressure_precond="block")
+SWEEP_OMEGA = 0.78
+SWEEP_CUT = 64
+SWEEP_T_STEPS = 16
 # published H100 SXM peaks: device memory and float32 outside the tensor
 # cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1155,6 +1191,232 @@ def bfs_phase(tag: str, dev) -> dict:
             "solve": solve, "step_ms": step_ms}
 
 
+def periodic_phase(tag: str, dev) -> dict:
+    """Periodic bases and forced response: the Re = 100 shedding orbit of
+    ``examples/cylinder_upo.py`` (192 elements, its f32 K1/K2 solver) and
+    the Re = 50 resolvent-sweep mesh of ``examples/cylinder_resolvent_sweep.py``
+    at omega = 0.78; fails on any check.  Returns the numbers the kernels
+    line needs."""
+    import torch
+    from nekstab_next_tpu_torch.algorithms.newton import _dotv
+    from nekstab_next_tpu_torch.algorithms.resolvent import ResolventOperator
+    from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.io import load_field
+    from nekstab_next_tpu_torch.stepper.linearized import (
+        FloquetOperator, LinearizedOperator, make_orbit_tangent_propagator)
+    from nekstab_next_tpu_torch.utils import velocity_noise
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, UPO_DIR, "upo.json")) as f:
+        upo = json.load(f)
+    T = upo["period"]
+    N = UPO_STEPS
+    dt = T / N
+    norm = lambda x: float(_dotv(sem, x, x)) ** 0.5
+
+    def upo_case(dtype, solver):
+        return CylinderCase(**UPO_MESH, dt=dt, dtype=dtype, device=dev,
+                            solver=SolverConfig(**solver))
+
+    case = upo_case(torch.float32, UPO_F32)
+    sem = case.sem
+    ns = case.make_ns()
+    fv, fp = ns.fused_v, ns.fused_p
+    path = {"fused_helmholtz_cg": 0, "fused_pressure_cg": 0}
+    err = {"fused_helmholtz_cg": 0.0, "fused_pressure_cg": 0.0}
+
+    def take(stepper=ns):
+        """Add the stepper's launches since the last reset to the path's
+        count, and reset them."""
+        torch.cuda.synchronize()
+        path["fused_helmholtz_cg"] += stepper.fused_v.launches
+        path["fused_pressure_cg"] += stepper.fused_p.launches
+        stepper.fused_v.launches = stepper.fused_p.launches = 0
+
+    def against_plain(got, ref):
+        e = float((got - ref).abs().max())
+        for k in err:
+            err[k] = max(err[k], e)
+        return rel(got, ref)
+
+    fv.launches = fp.launches = 0
+    u = torch.as_tensor(load_field(os.path.join(root, UPO_DIR, "UPO_cyl_00001.npz")).u,
+                        dtype=torch.float32, device=dev)
+    log(f"periodic: {UPO_DIR}/UPO_cyl_00001.npz on the UPO mesh ({sem.nelem} elements, "
+        f"Re {case.reynolds}), T {T:.6f} in {N} steps of {dt:.7g}, f32 K1/K2 caps "
+        f"{fp.maxiter}/{fv.maxiter}")
+
+    # ---- U1. the period map ----------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi = ns.propagator(u, N)
+    take()
+    t_period = time.perf_counter() - t0
+    r_map = norm(phi - u)
+    log(f"periodic: ||Phi_T(u) - u|| = {r_map:.4e} (bound 5e-3; the TPU's f32 Newton "
+        f"stopped at {upo['residual']:.4e}), {t_period:.2f} s ({1e3 * t_period / N:.3f} ms "
+        f"a step)")
+    if not (r_map <= 5e-3):
+        fail(f"the loaded orbit's period map residual {r_map:.4e}")
+
+    # ---- U2. the orbit tangent at 50 steps --------------------------------
+    q = sem.vmask * u  # a smooth input
+    got = make_orbit_tangent_propagator(ns, NSTEPS)(u, None, q, dt)
+    take()
+    with plain_solves(ns):
+        ref = make_orbit_tangent_propagator(ns, NSTEPS)(u, None, q, dt)
+    r_plain = against_plain(got, ref)
+    ns64 = upo_case(torch.float64, CAPS_TIGHT).make_ns()
+    u64, q64 = u.double(), q.double()
+    eps = 1e-5
+    fd = (ns64.propagator(u64 + eps * q64, NSTEPS) - ns64.propagator(u64 - eps * q64, NSTEPS)) / (2 * eps)
+    r_fd = rel(got, fd)
+    frozen = LinearizedOperator(ns, u, nsteps=NSTEPS).matvec(q)
+    take()
+    log(f"periodic: {NSTEPS}-step orbit tangent through K1/K2 vs plain versions rel "
+        f"{r_plain:.3e} (bound 1e-3), vs central differences of the f64 propagator at 1e-10 "
+        f"{r_fd:.3e} (bound 1e-3); the frozen-base tangent is {rel(frozen, fd):.3e} from them")
+    if not (r_plain <= 1e-3 and r_fd <= 1e-3):
+        fail(f"orbit tangent: vs plain {r_plain:.3e}, vs f64 differences {r_fd:.3e}")
+
+    # ---- U3. the full-period orbit operator: two matvecs ------------------
+    qdot = (ns.propagator(u, 1) - u) / dt
+    take()
+    op = FloquetOperator(ns, u, nsteps=N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Mq = op.matvec(qdot)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    Mq2 = op.matvec(qdot)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+    take()
+    ms_matvec, ms_primal = 1e3 * (t2 - t1), 1e3 * (t1 - t0) - 1e3 * (t2 - t1)
+    neutral = norm(Mq - qdot) / norm(qdot)
+    log(f"periodic: two full-period matvecs on one FloquetOperator launched {launches} "
+        f"(3 x {N} each: the orbit is stored once); {ms_matvec:.1f} ms a matvec, "
+        f"{ms_primal:.1f} ms the stored primal; equal bits {torch.equal(Mq, Mq2)}; "
+        f"monodromy drift {op.monodromy_drift:.4e}")
+    if launches != {k: 3 * N for k in launches} or not torch.equal(Mq, Mq2):
+        fail(f"two orbit matvecs launched {launches}, expected 3 x {N} each")
+    log(f"periodic: neutral phase mode ||M qdot - qdot|| / ||qdot|| = {neutral:.4e} "
+        f"(bound 5e-2)")
+    if not (neutral <= 5e-2):
+        fail(f"the orbit's multiplier at 1: {neutral:.4e}")
+
+    # ---- U4. the Floquet adjoint ---------------------------------------------
+    ns12 = upo_case(torch.float64, CAPS_12).make_ns()
+    op64 = FloquetOperator(ns12, u64, nsteps=IDENTITY_STEPS * 2)
+    outside = (sem.bms > 0)[..., None].double()
+    qa, wa = (outside * velocity_noise(ns12.sem, seed=sd) for sd in (1, 2))
+    a = float(sum(ns12.sem.inner(op64.matvec(qa)[..., d], wa[..., d]) for d in range(2)))
+    b = float(sum(ns12.sem.inner(qa[..., d], op64.rmatvec(wa)[..., d]) for d in range(2)))
+    r_id = abs(a - b) / abs(a)
+    log(f"periodic: f64 Floquet adjoint identity ({2 * IDENTITY_STEPS} steps along the orbit, "
+        f"solves at 1e-12, bms product): {a:.15e} vs {b:.15e}, rel {r_id:.3e} (bound 1e-10)")
+    if not (r_id <= 1e-10):
+        fail(f"Floquet adjoint identity: rel {r_id:.3e}")
+    w = sem.vmask * u
+    opa = FloquetOperator(ns, u, nsteps=NSTEPS)
+    opa.rmatvec(w)
+    take()
+    got = opa.rmatvec(w)
+    rmatvec_launches = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+    take()
+    with plain_solves(ns):
+        ref = FloquetOperator(ns, u, nsteps=NSTEPS).rmatvec(w)
+    r_rp = against_plain(got, ref)
+    log(f"periodic: f32 Floquet rmatvec ({NSTEPS} steps) kernels vs plain rel {r_rp:.3e} "
+        f"(bound 1e-3); its backward launched {rmatvec_launches}")
+    if not (r_rp <= 1e-3 and rmatvec_launches == {k: NSTEPS for k in rmatvec_launches}):
+        fail(f"Floquet rmatvec: rel {r_rp:.3e}, backward launches {rmatvec_launches}")
+
+    # ---- U5. the example's projected time ------------------------------------
+    step_ms = 1e3 * t_period / N
+    dns_steps = int(round(UPO_DNS_TIME / CylinderCase(**UPO_MESH, device=dev).dt))
+    log(f"projection {tag} periodic: examples/cylinder_upo.py DNS {UPO_DNS_TIME:g} time units "
+        f"= {dns_steps} steps x {step_ms:.3f} ms = {dns_steps * step_ms / 6e4:.1f} min; Newton "
+        f"{upo['n_matvecs']} matvecs ({UPO_DIR}/upo.json) x ({ms_matvec:.0f} + "
+        f"{ms_primal:.0f}) ms = {upo['n_matvecs'] * (ms_matvec + ms_primal) / 6e4:.1f} min "
+        f"(at most: one primal an iteration)")
+
+    # ---- S1. the sweep mesh's base flow under the f64 plain step ------------
+    rcase = CylinderCase(**SWEEP_MESH, device=dev, solver=SolverConfig(**SWEEP_BF))
+    bf = load_field(os.path.join(root, SWEEP_DIR, "BF_cyl_00001.npz"))
+    base64 = torch.as_tensor(bf.u, device=dev)
+    nbf = max(int(round(1.0 / rcase.dt)), 1)
+    t0 = time.perf_counter()
+    F = rcase.make_ns().propagator(base64, nbf) - base64
+    r_bf = float(_dotv(rcase.sem, F, F)) ** 0.5
+    log(f"periodic: {SWEEP_DIR}/BF_cyl_00001.npz ({rcase.sem.nelem} elements, Re "
+        f"{rcase.reynolds}) under the f64 plain step at 1e-8/1e-9: ||Phi_1(u) - u|| = "
+        f"{r_bf:.4e} over {nbf} steps (bound 1e-8; the TPU's Newton: "
+        f"{bf.meta['residual']:.3e}), {time.perf_counter() - t0:.1f} s")
+    if not (r_bf <= 1e-8):
+        fail(f"the sweep base flow's residual {r_bf:.4e}")
+
+    # ---- S2. the forced integration at omega = 0.78 in f32 ------------------
+    c32 = CylinderCase(**SWEEP_MESH, dtype=torch.float32, device=dev,
+                       solver=SolverConfig(**UPO_F32))
+    n32 = c32.make_ns()
+    gv, gp = n32.fused_v, n32.fused_p
+    spp = int(np.ceil(2 * np.pi / SWEEP_OMEGA / c32.dt / 4.0)) * 4
+    base32 = base64.float()
+    ro = ResolventOperator(n32, base32, SWEEP_OMEGA, steps_per_period=spp)
+    fr = c32.sem.vmask * base32
+    fi = c32.sem.vmask * (base32 - c32.uniform_flow())
+    gv.launches = gp.launches = 0
+    got = ro._integrate(torch.zeros_like(fr), fr, fi, SWEEP_CUT)
+    take(n32)
+    with plain_solves(n32):
+        ref = ro._integrate(torch.zeros_like(fr), fr, fi, SWEEP_CUT)
+    r_f = against_plain(got, ref)
+    log(f"periodic: sweep mesh f32 forced integration at omega {SWEEP_OMEGA} ({spp} steps a "
+        f"period) cut to {SWEEP_CUT} steps: kernels vs plain rel {r_f:.3e} (bound 1e-3)")
+    if not (r_f <= 1e-3):
+        fail(f"forced integration: kernels vs plain {r_f:.3e}")
+    t0 = time.perf_counter()
+    b_full = ro._apply((fr, fi))
+    torch.cuda.synchronize()
+    t_part = time.perf_counter() - t0
+    part = {"fused_helmholtz_cg": gv.launches, "fused_pressure_cg": gp.launches}
+    take(n32)
+    log(f"periodic: full-period particular solution: launches {part} (expected {spp} each), "
+        f"{t_part:.2f} s ({1e3 * t_part / spp:.3f} ms a step), finite "
+        f"{bool(torch.isfinite(b_full).all())}")
+    if part != {k: spp for k in part} or not bool(torch.isfinite(b_full).all()):
+        fail(f"the particular solution launched {part}")
+
+    # ---- S3. the transpose identity in f64, 16 steps, bm product ------------
+    r64 = ResolventOperator(CylinderCase(**SWEEP_MESH, device=dev,
+                                         solver=SolverConfig(**CAPS_12)).make_ns(),
+                            base64, SWEEP_OMEGA, steps_per_period=spp)
+    f64r, f64i = fr.double(), fi.double()
+    wv = velocity_noise(r64.sem, seed=3)
+    bm = r64.sem.bm[..., None]
+    Pf = r64._integrate(torch.zeros_like(f64r), f64r, f64i, SWEEP_T_STEPS)
+    ct = [torch.zeros_like(f64r), torch.zeros_like(f64r)]
+    r64._integrate_t(wv * bm, SWEEP_T_STEPS, ct)
+    lhs = float(torch.sum(bm * Pf * wv))
+    rhs = float(torch.sum(f64r * ct[0] + f64i * ct[1]))
+    r_t = abs(lhs - rhs) / abs(lhs)
+    log(f"periodic: f64 forced-integration transpose identity ({SWEEP_T_STEPS} steps, bm "
+        f"product): {lhs:.15e} vs {rhs:.15e}, rel {r_t:.3e} (bound 1e-10)")
+    if not (r_t <= 1e-10):
+        fail(f"forced-integration transpose: rel {r_t:.3e}")
+    apply_s = (2 * 20 + 2) * t_part
+    log(f"projection {tag} periodic: one R(omega = {SWEEP_OMEGA}) apply at the sweep's GMRES "
+        f"(k_dim 20, 2 restarts) costs at most 42 period integrations = {apply_s:.0f} s; one "
+        f"svds at k_dim 8 (8 applies of R and 8 of R*) {16 * apply_s / 60:.0f} min")
+    return {"launches": path, "max_abs_err": err, "orbit_matvec": launches,
+            "rmatvec_launches": rmatvec_launches, "particular": part,
+            "ms": {"step": step_ms, "matvec": ms_matvec, "primal": ms_primal,
+                   "particular_step": 1e3 * t_part / spp}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device -----------------------------------------------------
@@ -1423,6 +1685,9 @@ def main() -> None:
     # ==== the backward-facing step: 'schwarz', K1/K2 on a graded mesh ====
     bfs = bfs_phase(tag, dev)
 
+    # ==== periodic bases and forced response (K1, K2 along an orbit) =====
+    per = periodic_phase(tag, dev)
+
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
          "launches": launches[name], "max_abs_err": err[name],
@@ -1437,7 +1702,12 @@ def main() -> None:
                       "iterations": ir["iterations"][name], **ir["solve"][name]},
          "bfs": {"launches": bfs["launches"][name], "max_abs_err": bfs["max_abs_err"][name],
                  "iterations": bfs["iterations"][name], "bdf3_solve": bfs["solve"][name],
-                 "step_ms": bfs["step_ms"]}}
+                 "step_ms": bfs["step_ms"]},
+         "periodic": {"launches": per["launches"][name],
+                      "max_abs_err": per["max_abs_err"][name],
+                      "orbit_two_matvecs": per["orbit_matvec"][name],
+                      "floquet_rmatvec_backward": per["rmatvec_launches"][name],
+                      "particular_solution": per["particular"][name], "ms": per["ms"]}}
         for name in ("fused_helmholtz_cg", "fused_pressure_cg")
     ] + [
         # K4 once per cube shape: its launches on the cube matvec at that shape

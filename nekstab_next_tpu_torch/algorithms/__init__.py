@@ -1,5 +1,12 @@
 from .fixed_point import FixedPointResult, boostconv_dns, sfd, tdf
+from .harmonic import HarmonicResolventResult, harmonic_resolvent_analysis
 from .newton import NewtonResult, newton_krylov
+from .resolvent import (
+    FloquetResolventOperator,
+    ResolventOperator,
+    ResolventResult,
+    resolvent_analysis,
+)
 from .stability import (
     StabilityResult,
     TransientGrowthResult,
@@ -22,4 +29,10 @@ __all__ = [
     "boostconv_dns",
     "tdf",
     "FixedPointResult",
+    "resolvent_analysis",
+    "ResolventOperator",
+    "FloquetResolventOperator",
+    "ResolventResult",
+    "harmonic_resolvent_analysis",
+    "HarmonicResolventResult",
 ]

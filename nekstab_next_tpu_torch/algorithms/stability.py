@@ -7,10 +7,11 @@ Krylov-Schur on the direct or adjoint exponential propagator, eigenvalues
 reported in the propagator plane (mu) and log-mapped to the NS plane
 lambda = log(mu)/T; Golub-Kahan svds of the propagator for the optimal
 energy growth.  The inner product is the sponge-masked energy product
-<u, v>_{bm1s}.
+<u, v>_{bm1s}.  ``floquet=True`` takes the propagator along the periodic
+orbit launched from the base (``FloquetOperator``: the monodromy when the
+horizon is the orbit's period).
 
-Not ported: Floquet analysis about a periodic base (``floquet=True``),
-ROADMAP item 12; coupled scalars (``base_T``), item 10.  Each raises."""
+Not ported: coupled scalars (``base_T``), ROADMAP item 10; it raises."""
 
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 from ..krylov.krylov_schur import EigenResult, eigs
 from ..krylov.svd import svds
 from ..krylov.vector import VectorSpace
-from ..stepper.linearized import LinearizedOperator
+from ..stepper.linearized import FloquetOperator, LinearizedOperator
 from ..stepper.navier_stokes import NavierStokes
 from ..utils.noise import make_seed, velocity_noise
 
@@ -67,6 +68,12 @@ class StabilityResult:
         return complex(self.lam[i])
 
 
+def _make_operator(ns, base_u, base_p, nsteps, floquet):
+    if floquet:
+        return FloquetOperator(ns, base_u, base_p=base_p, nsteps=nsteps)
+    return LinearizedOperator(ns, base_u, base_p=base_p, nsteps=nsteps)
+
+
 def linear_stability_analysis(
     ns: NavierStokes,
     base_u: torch.Tensor,
@@ -91,18 +98,17 @@ def linear_stability_analysis(
     checkpoint_steps: bool = False,
 ) -> StabilityResult:
     """Leading direct (``mode='direct'``) or adjoint (``mode='adjoint'``)
-    eigenmodes of the linearized flow about the steady ``base_u``.  As in
-    the JAX package, the horizon is ``nsteps * ns.dt`` (``horizon`` is
-    accepted for its signature).  ``seed_mode``: 'noise' | 'symmetric' |
-    'load' | 'baseflow'."""
-    if floquet:
-        raise NotImplementedError(
-            "not ported: Floquet analysis about a periodic base (ROADMAP item 12)")
+    eigenmodes of the linearized flow about the steady ``base_u``, or with
+    ``floquet=True`` along the orbit launched from it (Floquet multipliers
+    ``mu`` when the horizon is its period).  As in the JAX package, the
+    horizon is ``nsteps * ns.dt`` (``horizon`` is accepted for its
+    signature).  ``seed_mode``: 'noise' | 'symmetric' | 'load' |
+    'baseflow'."""
     if base_T is not None:
         raise NotImplementedError("not ported: coupled scalars (ROADMAP item 10)")
     if mode not in ("direct", "adjoint"):
         raise ValueError(f"mode must be 'direct' or 'adjoint', got {mode!r}")
-    op = LinearizedOperator(ns, base_u, base_p=base_p, nsteps=nsteps)
+    op = _make_operator(ns, base_u, base_p, nsteps, floquet)
     matvec = op.matvec if mode == "direct" else op.rmatvec
     space = velocity_space(ns.sem)
     if x0 is None:
@@ -174,13 +180,10 @@ def transient_growth_analysis(
     """Optimal energy growth over the horizon: G = sigma(exp(T L))^2, the
     leading singular values of the tangent propagator in the sponge-masked
     energy norm (Golub-Kahan :func:`~..krylov.svd.svds` on ``matvec`` and
-    ``rmatvec``).  As in the JAX package, the horizon is ``nsteps * ns.dt``
-    (``horizon`` is accepted for its signature)."""
-    if floquet:
-        raise NotImplementedError(
-            "not ported: transient growth about a periodic base (floquet=True; "
-            "FloquetOperator, ROADMAP item 12)")
-    op = LinearizedOperator(ns, base_u, base_p=base_p, nsteps=nsteps)
+    ``rmatvec``), about a steady base or, with ``floquet=True``, along the
+    orbit launched from it.  As in the JAX package, the horizon is
+    ``nsteps * ns.dt`` (``horizon`` is accepted for its signature)."""
+    op = _make_operator(ns, base_u, base_p, nsteps, floquet)
     space = velocity_space(ns.sem)
     if x0 is None:
         x0 = velocity_noise(ns.sem, seed=seed)

@@ -1,5 +1,7 @@
-"""Tangent propagator about a frozen steady base (port of
-``nekstab_next_tpu/stepper/linearized.py`` ``LinearizedOperator``).
+"""Tangent propagators about a frozen steady base and along a periodic
+orbit (port of ``nekstab_next_tpu/stepper/linearized.py``:
+``LinearizedOperator``, ``make_tangent_propagator``,
+``make_orbit_tangent_propagator``, ``FloquetOperator``).
 
 The JAX package gets the tangent step from ``jax.linearize`` of the
 nonlinear step, once per BDF-ramp stage.  PyTorch has no linearization of a
@@ -33,21 +35,152 @@ on the fused-IR mixed path ``mixed_ir_cycles`` times each per step (the
 refinement cycles run inside the Function, so its backward is the refined
 solve).  The legacy mixed-precision step has no adjoint here (its refined
 solve is not differentiable).
+
+Along an evolving base (a periodic orbit, a forced orbit) the JAX package
+takes ``jax.jvp``/``jax.linearize`` of the whole nonlinear trajectory.  Here
+:class:`TangentSteps` stores and replays, as the reference's Fortran does
+(``uor/vor``, core/matvec.f90:189-231): one primal pass stores the state
+``u_n`` entering each step, and the tangent runs the written-out tangent
+step about ``u_n`` at the step's physical time ``t0 + n dt`` (the forcing
+hook is linearized there).  The primal runs once per linearization point,
+not once per matvec.  Its transpose splits each step into the part after
+the explicit term (``NavierStokes._implicit``, one ``vjp`` per BDF stage,
+built once) and the explicit term's tangent about ``u_n`` (one small
+``vjp`` a step, no solves), so an f32 transpose launches K1 and K2 once
+each per step in its backward, as ``rmatvec`` does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
 from .navier_stokes import NavierStokes
 
 
+class TangentSteps:
+    """Written-out tangent steps of ``ns`` along a base trajectory, with
+    their transposes.
+
+    ``bases`` is one tensor (a frozen base, at the one physical time
+    ``times``) or a sequence with the state entering each step (a stored
+    orbit, with each step's time in ``times``).  ``warm`` carries the
+    pressure-increment slot in the tangent fields (the JAX operators built
+    on ``ns.step`` carry it when ``solver.warm_start`` is on; those built
+    on four-field ``jax.linearize`` templates, the resolvent's, do not).
+    A step may add a tangent forcing ``fc`` (``B fc`` in the explicit
+    term)."""
+
+    def __init__(self, ns: NavierStokes, bases: Union[torch.Tensor, Sequence[torch.Tensor]],
+                 times: Union[float, Sequence[float]] = 0.0, dt: Optional[float] = None,
+                 warm: Optional[bool] = None):
+        self.ns = ns
+        self.sem = ns.sem
+        self.bases = bases
+        self.times = times
+        self.frozen = isinstance(bases, torch.Tensor)
+        self.dt = ns.dt if dt is None else float(dt)
+        self.warm = ns.solver.warm_start if warm is None else bool(warm)
+        self.final: Optional[torch.Tensor] = None  # the orbit's end state (along_orbit)
+        self._stage_vjps: List[Callable] = []
+        self._explicit_vjp: Optional[Callable] = None  # a frozen base's, built once
+
+    @classmethod
+    def along_orbit(cls, ns: NavierStokes, base_u: torch.Tensor,
+                    base_p: Optional[torch.Tensor], nsteps: int,
+                    dt: Optional[float] = None, t0: float = 0.0) -> "TangentSteps":
+        """Run the nonlinear trajectory from ``base_u`` (fresh state at
+        physical time ``t0``, BDF ramp) for ``nsteps`` steps and store the
+        state entering each step; ``final`` is the state after the last."""
+        s = ns.sem
+        st = ns.make_state(base_u.to(device=s.device, dtype=s.dtype), p=base_p, time=t0)
+        bases, times = [], []
+        for _ in range(int(nsteps)):
+            bases.append(st.u)
+            times.append(st.time)
+            st = ns.step(st, dt=dt)
+        steps = cls(ns, bases, times, dt=dt)
+        steps.final = st.u
+        return steps
+
+    def base(self, n: int) -> torch.Tensor:
+        return self.bases if self.frozen else self.bases[n]
+
+    def time(self, n: int) -> float:
+        return self.times if self.frozen else self.times[n]
+
+    def fields(self, q: torch.Tensor) -> tuple:
+        """Zero-history tangent field tuple seeded with q."""
+        s = self.sem
+        q = q.to(s.dtype)
+        zp = torch.zeros(self.ns.p_shape, dtype=s.dtype, device=s.device)
+        zl = torch.zeros((2,) + tuple(q.shape), dtype=s.dtype, device=s.device)
+        df = (q, zp, zl, zl.clone())
+        return df + (torch.zeros_like(zp),) if self.warm else df
+
+    def step(self, df: tuple, n: int, fc: Optional[torch.Tensor] = None) -> tuple:
+        """Tangent step n (BDF stage min(n, 2)) about base n at time n."""
+        return self.ns._core(df, self.time(n), min(n, 2), fc=fc, lin_base=self.base(n),
+                             dt=self.dt)
+
+    def integrate(self, q: torch.Tensor, nsteps: int,
+                  forcing: Optional[Callable[[int], torch.Tensor]] = None) -> torch.Tensor:
+        """``nsteps`` tangent steps from the zero history seeded with q,
+        step n forced by ``forcing(n)``."""
+        df = self.fields(q)
+        for n in range(nsteps):
+            df = self.step(df, n, None if forcing is None else forcing(n))
+        return df[0]
+
+    # -- transpose -----------------------------------------------------
+    def _stage(self, k: int, ct: tuple) -> Callable:
+        """The transpose of BDF stage k's part after the explicit term: a
+        ``vjp`` of ``NavierStokes._implicit`` at the zero history, built
+        once (the map is linear)."""
+        while len(self._stage_vjps) <= k:
+            kk = len(self._stage_vjps)
+            zero = tuple(torch.zeros_like(c) for c in ct)
+            lift = torch.zeros_like(ct[0])
+            self._stage_vjps.append(torch.func.vjp(
+                lambda df, E, kk=kk: self.ns._implicit(df, E, kk, lift, self.dt),
+                zero, torch.zeros_like(ct[0]))[1])
+        return self._stage_vjps[k]
+
+    def _explicit_t(self, n: int, ct_E: torch.Tensor) -> torch.Tensor:
+        """The transpose of the explicit term's tangent about base n."""
+        if self.frozen and self._explicit_vjp is not None:
+            return self._explicit_vjp(ct_E)[0]
+        base, t = self.base(n), self.time(n)
+        vjp = torch.func.vjp(lambda v: self.ns._explicit_tangent(base, v, t),
+                             torch.zeros_like(ct_E))[1]
+        if self.frozen:
+            self._explicit_vjp = vjp
+        return vjp(ct_E)[0]
+
+    def transpose(self, ct_u: torch.Tensor, nsteps: int,
+                  forcing_ct: Optional[Callable[[int, torch.Tensor], None]] = None
+                  ) -> torch.Tensor:
+        """The transpose of :meth:`integrate` (Euclidean, element-local
+        layout): the cotangent of its seed for the output cotangent
+        ``ct_u``; ``forcing_ct(n, c)`` receives the cotangent of step n's
+        forcing."""
+        bm = self.sem.bm[..., None]
+        ct = self.fields(ct_u)
+        for n in reversed(range(nsteps)):
+            ct_df, ct_E = self._stage(min(n, 2), ct)(ct)
+            ct = (ct_df[0] + self._explicit_t(n, ct_E),) + tuple(ct_df[1:])
+            if forcing_ct is not None:
+                forcing_ct(n, bm * ct_E)
+        return ct[0]
+
+
 class LinearizedOperator:
     """Tangent propagator  q -> D Phi_T(base) q  around a frozen steady base
-    flow (velocity-only steppers).  ``dt`` overrides the stepper's time step
-    (Newton on a horizon ``ns.dt`` does not divide)."""
+    flow (velocity-only steppers): :class:`TangentSteps` about the one base.
+    ``dt`` overrides the stepper's time step (Newton on a horizon ``ns.dt``
+    does not divide).  A forcing hook ``ns.forcing`` is linearized at the
+    frozen base and at ``t0`` for every step, as in the JAX operator."""
 
     def __init__(
         self,
@@ -58,10 +191,6 @@ class LinearizedOperator:
         t0: float = 0.0,
         dt: Optional[float] = None,
     ):
-        if ns.forcing is not None:
-            raise NotImplementedError(
-                "the tangent of a user forcing hook is not ported"
-            )
         s = ns.sem
         self.ns = ns
         self.sem = s
@@ -72,30 +201,12 @@ class LinearizedOperator:
         # the tangent does not depend on the base pressure; base_p is kept
         # for call compatibility with the JAX operator
         self.base_u = base_u.to(device=s.device, dtype=s.dtype)
-        self.warm = ns.solver.warm_start
+        self.steps = TangentSteps(ns, self.base_u, self.t0, dt=self.dt)
         self._vjps: Optional[List[Callable]] = None  # built at the first rmatvec
-
-    def _tangent0(self, q: torch.Tensor) -> tuple:
-        """Zero-history tangent field tuple seeded with q (its last axis
-        holds the components)."""
-        s = self.sem
-        zp = torch.zeros(self.ns.p_shape, dtype=s.dtype, device=s.device)
-        zl = torch.zeros((2,) + tuple(q.shape), dtype=s.dtype, device=s.device)
-        df = (q.to(s.dtype), zp, zl, zl.clone())
-        if self.warm:
-            df = df + (torch.zeros_like(zp),)
-        return df
-
-    def _step(self, df: tuple, k: int) -> tuple:
-        """One tangent step of BDF stage k (0, 1, 2 -> BDF1, 2, 3)."""
-        return self.ns._core(df, self.t0, k, lin_base=self.base_u, dt=self.dt)
 
     def matvec(self, q: torch.Tensor) -> torch.Tensor:
         """Direct map: nsteps tangent steps from a zero history."""
-        df = self._tangent0(q)
-        for i in range(self.nsteps):
-            df = self._step(df, min(i, 2))
-        return df[0]
+        return self.steps.integrate(q, self.nsteps)
 
     # -- adjoint -------------------------------------------------------
     def _mass_weight(self, w: torch.Tensor) -> torch.Tensor:
@@ -114,9 +225,9 @@ class LinearizedOperator:
         return w * inv * self.sem.vmask
 
     def _stage_vjps(self) -> List[Callable]:
-        """The transpose of each BDF stage's tangent step: ``torch.func.vjp``
-        at the zero history, built once (the step is linear, so the vjp does
-        not depend on the point)."""
+        """The transpose of each BDF stage's whole tangent step:
+        ``torch.func.vjp`` at the zero history, built once (the step is
+        linear, so the vjp does not depend on the point)."""
         if self._vjps is None:
             if self.ns.mixed is not None:
                 raise NotImplementedError(
@@ -125,10 +236,10 @@ class LinearizedOperator:
                     "and 15)"
                 )
             s = self.sem
-            zero = self._tangent0(torch.zeros(tuple(s.bm.shape) + (s.ndim,),
-                                              dtype=s.dtype, device=s.device))
+            zero = self.steps.fields(torch.zeros(tuple(s.bm.shape) + (s.ndim,),
+                                                 dtype=s.dtype, device=s.device))
             self._vjps = [
-                torch.func.vjp(lambda df, k=k: self._step(df, k), zero)[1]
+                torch.func.vjp(lambda df, k=k: self.steps.step(df, k), zero)[1]
                 for k in range(min(self.nsteps, 3))
             ]
         return self._vjps
@@ -137,7 +248,7 @@ class LinearizedOperator:
         """Adjoint in the (sponge-masked) energy product:
         M* = W^+ M^T W with W = diag(bm1s)."""
         vjps = self._stage_vjps()
-        ct = self._tangent0(self._mass_weight(w.to(self.sem.dtype)))
+        ct = self.steps.fields(self._mass_weight(w.to(self.sem.dtype)))
         for i in reversed(range(self.nsteps)):
             (ct,) = vjps[min(i, 2)](ct)
         return self._mass_unweight(ct[0])
@@ -154,3 +265,74 @@ def make_tangent_propagator(ns: NavierStokes, nsteps: int) -> Callable:
                                   dt=dt).matvec(q)
 
     return apply
+
+
+def make_orbit_tangent_propagator(ns: NavierStokes, nsteps: int,
+                                  remat: bool = True) -> Callable:
+    """Tangent of the full nonlinear trajectory:  ``(base_u, base_p, q, dt,
+    t0) -> D Phi_T(base_u) q``  linearized along the orbit launched from
+    ``base_u`` at physical time ``t0`` (fresh state, BDF ramp), the forcing
+    hook at each step's time.  Each call integrates and stores the orbit,
+    then replays the tangent along it, as the JAX function recomputes the
+    primal inside every call; to apply one linearization many times, hold a
+    :class:`TangentSteps` (``along_orbit``) or a :class:`FloquetOperator`.
+    ``remat`` is accepted for the JAX signature: the orbit is stored,
+    ``nsteps`` x the velocity field."""
+
+    def apply(base_u, base_p, q, dt, t0=0.0):
+        steps = TangentSteps.along_orbit(ns, base_u, base_p, nsteps, dt=float(dt),
+                                         t0=float(t0))
+        return steps.integrate(q, nsteps)
+
+    return apply
+
+
+class FloquetOperator:
+    """Tangent propagator around a *periodic* base orbit (the reference's
+    Floquet path: orbit store/replay, core/matvec.f90:189-231): the orbit
+    launched from ``base_u`` at ``t0`` with the stepper's ``dt`` is stored
+    at the first application (``monodromy_drift`` = ||Phi_T(base) - base||
+    then), and every matvec replays the tangent along it.  ``rmatvec`` is
+    the adjoint in the sponge-masked energy product, ``M* = W^+ M^T W``
+    with ``W = diag(bms)``, as :class:`LinearizedOperator`'s.  ``remat`` is
+    accepted for the JAX signature (the orbit is stored)."""
+
+    def __init__(
+        self,
+        ns: NavierStokes,
+        base_u: torch.Tensor,
+        base_p: Optional[torch.Tensor] = None,
+        nsteps: int = 100,
+        t0: float = 0.0,
+        remat: bool = True,
+        base_T: Optional[torch.Tensor] = None,
+    ):
+        if base_T is not None:
+            raise NotImplementedError("not ported: coupled scalars (base_T), ROADMAP item 10")
+        self.ns = ns
+        self.sem = ns.sem
+        self.nsteps = int(nsteps)
+        self.T = self.nsteps * ns.dt
+        self.t0 = float(t0)
+        self.base_u = base_u.to(device=ns.sem.device, dtype=ns.sem.dtype)
+        self.base_p = base_p
+        self._steps: Optional[TangentSteps] = None
+
+    def _orbit(self) -> TangentSteps:
+        if self._steps is None:
+            self._steps = TangentSteps.along_orbit(self.ns, self.base_u, self.base_p,
+                                                   self.nsteps, t0=self.t0)
+            self.monodromy_drift = float(self.sem.norm(self._steps.final - self.base_u))
+        return self._steps
+
+    def matvec(self, q: torch.Tensor) -> torch.Tensor:
+        return self._orbit().integrate(q, self.nsteps)
+
+    # sponge-masked energy weighting, as in LinearizedOperator
+    _mass_weight = LinearizedOperator._mass_weight
+    _mass_unweight = LinearizedOperator._mass_unweight
+
+    def rmatvec(self, w: torch.Tensor) -> torch.Tensor:
+        steps = self._orbit()
+        ct = steps.transpose(self._mass_weight(w.to(self.sem.dtype)), self.nsteps)
+        return self._mass_unweight(ct)

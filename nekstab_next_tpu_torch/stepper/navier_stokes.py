@@ -29,8 +29,10 @@ chosen where the JAX package chooses them:
   kernel K4 (``ops/mixed.py``) on the ``'laplacian'`` scheme.
 
 The tangent step (``stepper/linearized.py``) is the same :meth:`_core` run
-with the explicit term linearized about a frozen base and the Dirichlet lift
-set to zero; the step is affine in its fields apart from the convection.
+with the explicit term linearized about a base velocity (frozen, or the
+stored state of each step of an orbit) and the Dirichlet lift set to zero;
+the step is affine in its fields apart from the convection and the forcing
+hook.
 
 Every option the port does not implement raises where it is read; the JAX
 stepper would quietly take another path instead.
@@ -256,14 +258,22 @@ class NavierStokes:
             E = E + bm * fc
         return E
 
-    def _explicit_tangent(self, base: torch.Tensor, du: torch.Tensor) -> torch.Tensor:
-        """Derivative of :meth:`_explicit_weak` at ``base`` along ``du``
-        (without a forcing hook): the convection is bilinear and the sponge
-        target is a constant."""
+    def _explicit_tangent(self, base: torch.Tensor, du: torch.Tensor, t: float = 0.0,
+                          fc=None) -> torch.Tensor:
+        """Derivative of :meth:`_explicit_weak` at ``(base, t)`` along ``du``,
+        plus ``B fc`` (the explicit forcing enters affinely, as in JAX's
+        linearization in (state, fc)): the convection is bilinear, the
+        sponge target is a constant, and the pointwise forcing hook is
+        differentiated by ``torch.func.jvp`` at the step's physical time."""
         s = self.sem
         E = -(self._convect_all(base, du) + self._convect_all(du, base))
+        bm = s.bm[..., None]
         if self.sponge_ref is not None:
-            E = E - s.bm[..., None] * s.sponge[..., None] * du
+            E = E - bm * s.sponge[..., None] * du
+        if self.forcing is not None:
+            E = E + bm * torch.func.jvp(lambda u: self.forcing(u, t), (base,), (du,))[1]
+        if fc is not None:
+            E = E + bm * fc
         return E
 
     # ------------------------------------------------------------------
@@ -290,24 +300,32 @@ class NavierStokes:
         """One step on the field tuple (u, p, ulag, nlag[, dp]).
 
         ``k`` selects the BDF/EXT order (0,1,2 -> BDF1,2,3).  With
-        ``lin_base`` the step is the TANGENT step about the frozen base
-        velocity: the explicit term is linearized there and the Dirichlet
-        lift is zero (its derivative); everything else is affine in the
-        fields and runs unchanged, solves included.  ``dt`` overrides the
-        constructor's time step."""
+        ``lin_base`` the step is the TANGENT step about the base velocity
+        ``lin_base`` at physical time ``time``: the explicit term is
+        linearized there (``fc`` then enters as a tangent forcing) and the
+        Dirichlet lift is zero (its derivative); everything else is affine
+        in the fields and runs unchanged, solves included.  ``dt``
+        overrides the constructor's time step."""
+        u0 = fields[0]
+        if lin_base is None:
+            return self._implicit(fields, self._explicit_weak(u0, time, fc=fc), k,
+                                  self.u_bc, dt)
+        return self._implicit(fields, self._explicit_tangent(lin_base, u0, time, fc=fc),
+                              k, torch.zeros_like(u0), dt)
+
+    def _implicit(self, fields: Tuple, E0: torch.Tensor, k: int, u_bc: torch.Tensor,
+                  dt: Optional[float] = None) -> Tuple:
+        """The rest of a step once its explicit term ``E0`` is known: the
+        extrapolation, both solves and the projection.  Affine in
+        ``(fields, E0)``, linear with a zero lift ``u_bc``: the transpose of
+        a tangent step along an evolving base is this function's transpose
+        (one per BDF stage) and the explicit term's (one per base)."""
         u0, p0, ulag0, nlag0 = fields[:4]
         dp0 = fields[4] if len(fields) > 4 else None
         s = self.sem
         dt = self.dt if dt is None else float(dt)
         g0, b = _BDF[k + 1]
         a = _EXT[k + 1]
-
-        if lin_base is None:
-            E0 = self._explicit_weak(u0, time, fc=fc)
-            u_bc = self.u_bc
-        else:
-            E0 = self._explicit_tangent(lin_base, u0)
-            u_bc = torch.zeros_like(u0)
         bm = s.bm[..., None]
         vmask = s.vmask
         binv = s.binv_assembled[..., None]

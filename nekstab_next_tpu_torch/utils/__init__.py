@@ -1,4 +1,10 @@
-from .diagnostics import BoundaryQuadrature, boundary_quadrature, surface_force_and_torque
+from .diagnostics import (
+    BoundaryQuadrature,
+    boundary_quadrature,
+    periods_from_signal,
+    surface_force_and_torque,
+    zero_crossings,
+)
 from .noise import make_seed, symmetric_seed, velocity_noise
 
 __all__ = [
@@ -8,4 +14,6 @@ __all__ = [
     "BoundaryQuadrature",
     "boundary_quadrature",
     "surface_force_and_torque",
+    "zero_crossings",
+    "periods_from_signal",
 ]

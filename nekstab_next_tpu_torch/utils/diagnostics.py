@@ -1,8 +1,10 @@
-"""Aerodynamic forces on a body (port of ``BoundaryQuadrature``,
-``boundary_quadrature`` and ``surface_force_and_torque`` from
-``nekstab_next_tpu/utils/diagnostics.py``, the reference's
-``nekStab_torque``/``drgtrq``).  The quadrature is built on the host from
-the mesh (numpy); the force is evaluated on the SEM's device."""
+"""Aerodynamic forces on a body and the period of a signal (port of
+``BoundaryQuadrature``, ``boundary_quadrature``, ``surface_force_and_torque``,
+``zero_crossings`` and ``periods_from_signal`` from
+``nekstab_next_tpu/utils/diagnostics.py``; the reference's
+``nekStab_torque``/``drgtrq`` and ``zero_crossing``).  The quadrature is
+built on the host from the mesh (numpy); the force is evaluated on the SEM's
+device.  The period helpers are host numpy copies."""
 
 from __future__ import annotations
 
@@ -115,3 +117,19 @@ def surface_force_and_torque(
     yg = gather(torch.as_tensor(mesh.y, dtype=dt, device=dev)) - center[1]
     Mz = torch.sum((xg * trac[..., 1] - yg * trac[..., 0]) * ds)
     return F[0], F[1], Mz
+
+
+def zero_crossings(times: np.ndarray, signal: np.ndarray) -> np.ndarray:
+    """Upward zero-crossing instants by linear interpolation (the
+    Poincare-section period tracker, the reference's ``zero_crossing``
+    writing zc_period.dat); successive differences estimate the period."""
+    times = np.asarray(times)
+    s = np.asarray(signal)
+    idx = np.where((s[:-1] <= 0.0) & (s[1:] > 0.0))[0]
+    frac = -s[idx] / (s[idx + 1] - s[idx])
+    return times[idx] + frac * (times[idx + 1] - times[idx])
+
+
+def periods_from_signal(times, signal) -> np.ndarray:
+    """Periods between the upward crossings of the signal's mean."""
+    return np.diff(zero_crossings(times, np.asarray(signal) - np.mean(signal)))

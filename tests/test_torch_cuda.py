@@ -121,6 +121,60 @@ def test_rmatvec_kernels_match_plain(case):
     assert rel(got, ref) < 1e-4
 
 
+def test_orbit_tangent_kernels_match_plain(case):
+    # the stored-orbit tangent (FloquetOperator) along 3 steps from the
+    # uniform flow: the orbit is integrated once (3 launches of each
+    # kernel), every matvec replays it (3 more each); its transpose
+    # launches each once per step in the backward, after one forward step
+    # per BDF stage for the vjps; kernels against the plain versions
+    # (the smoke's f32 bound: the orbit starts impulsively from the uniform
+    # flow)
+    from nekstab_next_tpu_torch.stepper.linearized import FloquetOperator
+
+    ns = case.make_ns()
+    q = case.sem.vmask * case.uniform_flow()
+    op = FloquetOperator(ns, case.uniform_flow(), nsteps=3)
+    got = op.matvec(q)
+    assert ns.fused_v.launches == 6 and ns.fused_p.launches == 6
+    op.matvec(q)
+    assert ns.fused_v.launches == 9 and ns.fused_p.launches == 9
+    got_t = op.rmatvec(q)
+    assert ns.fused_v.launches == 9 + 3 + 3 and ns.fused_p.launches == 9 + 3 + 3
+    ns.fused_v.solve, ns.fused_p.solve = ns.fused_v.plain, ns.fused_p.plain
+    ref = FloquetOperator(ns, case.uniform_flow(), nsteps=3)
+    r, r_t = rel(got, ref.matvec(q)), rel(got_t, ref.rmatvec(q))
+    print(f"orbit tangent vs plain: matvec {r:.4e}, rmatvec {r_t:.4e}")
+    assert r < 1e-3
+    assert r_t < 1e-3
+
+
+def test_forced_integration_kernels_match_plain(case):
+    # the resolvent's forced tangent integration (a period of 8 steps of
+    # the case's dt, the forcing phase advanced each step) and its
+    # transpose: one launch of each kernel a step; kernels against the
+    # plain versions (the smoke's f32 bound)
+    from nekstab_next_tpu_torch.algorithms.resolvent import ResolventOperator
+
+    ns = case.make_ns()
+    f = case.sem.vmask * case.uniform_flow()
+    op = ResolventOperator(ns, case.uniform_flow(), 2 * np.pi / (8 * case.dt),
+                           steps_per_period=8)
+    got = op._apply((f, 0.5 * f))
+    assert ns.fused_v.launches == 8 and ns.fused_p.launches == 8
+    ct = [torch.zeros_like(f), torch.zeros_like(f)]
+    got_t = op._integrate_t(f, 8, ct)
+    ns.fused_v.solve, ns.fused_p.solve = ns.fused_v.plain, ns.fused_p.plain
+    r = rel(got, op._apply((f, 0.5 * f)))
+    ref_ct = [torch.zeros_like(f), torch.zeros_like(f)]
+    r_t = rel(got_t, op._integrate_t(f, 8, ref_ct))
+    r_ct = max(rel(a, b) for a, b in zip(ct, ref_ct))
+    print(f"forced integration vs plain: {r:.4e}, transpose {r_t:.4e}, "
+          f"forcing cotangents {r_ct:.4e}")
+    assert r < 1e-3
+    assert r_t < 1e-3
+    assert r_ct < 1e-3
+
+
 # examples/cylinder_stability.py's --precision mixed solver (fused-IR path)
 MIXED = dict(pressure_tol=1e-8, velocity_tol=1e-9, pressure_maxiter=500,
              velocity_maxiter=200, pressure_precond="block", fused_solves=True)

@@ -88,16 +88,25 @@ def test_example_mixed_precision_runs_to_the_end(tmp_path, monkeypatch, capsys):
 
 
 def test_pipeline_imports_no_jax():
-    # in a fresh interpreter: this process has jax loaded (tests/conftest.py)
+    # in a fresh interpreter: this process has jax loaded (tests/conftest.py);
+    # the pipeline's modules, the periodic-base and forced-response ones,
+    # this example, the UPO and resolvent-sweep examples and their tools
+    scripts = [SCRIPT] + [os.path.join(ROOT, p) for p in (
+        "examples_torch/cylinder_upo.py", "examples_torch/cylinder_resolvent_sweep.py",
+        "tools_torch/merge_resolvent_sweep.py", "tools_torch/upo_newton.py")]
     code = (
         "import sys, importlib.util\n"
         "import nekstab_next_tpu_torch.algorithms.stability, "
         "nekstab_next_tpu_torch.algorithms.newton, "
+        "nekstab_next_tpu_torch.algorithms.resolvent, "
+        "nekstab_next_tpu_torch.algorithms.harmonic, "
+        "nekstab_next_tpu_torch.stepper.linearized, "
         "nekstab_next_tpu_torch.postproc.sensitivity, nekstab_next_tpu_torch.krylov, "
         "nekstab_next_tpu_torch.io, nekstab_next_tpu_torch.utils, "
         "nekstab_next_tpu_torch.ops.exchange, nekstab_next_tpu_torch.ops.fused_cg\n"
-        f"spec = importlib.util.spec_from_file_location('ex', {SCRIPT!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for i, path in enumerate({scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not [m for m in sys.modules if m.startswith('nekstab_next_tpu.')]\n"
     )

@@ -118,15 +118,19 @@ def test_matvec_is_linear():
 
 def test_adjoint_and_forcing_raise():
     # the adjoint is ported (tests/test_torch_adjoint.py) except about the
-    # legacy mixed-precision step; the tangent of a forcing hook is not
+    # legacy mixed-precision step; the tangent of a forcing hook is ported
+    # (tests/test_torch_orbit.py): a hook whose tangent vanishes leaves the
+    # operator as it was, bit for bit
     mixed = CylinderCase(nr=2, ntheta=4, order=4, device="cpu", mixed_precision=True)
     op = LinearizedOperator(mixed.make_ns(), mixed.uniform_flow(), nsteps=2)
     with pytest.raises(NotImplementedError):
         op.rmatvec(mixed.uniform_flow())
     case = CylinderCase(nr=2, ntheta=4, order=4, device="cpu")
     ns = case.make_ns()
-    assert LinearizedOperator(ns, case.uniform_flow(), nsteps=2).rmatvec(
-        case.uniform_flow()).shape == case.uniform_flow().shape
-    ns.forcing = lambda u, t: 0.0 * u
-    with pytest.raises(NotImplementedError):
-        LinearizedOperator(ns, case.uniform_flow(), nsteps=2)
+    u = case.uniform_flow()
+    plain = LinearizedOperator(ns, u, nsteps=2)
+    assert plain.rmatvec(u).shape == u.shape
+    ns.forcing = lambda v, t: 0.0 * v
+    forced = LinearizedOperator(ns, u, nsteps=2)
+    assert torch.equal(forced.matvec(u), plain.matvec(u))
+    assert torch.equal(forced.rmatvec(u), plain.rmatvec(u))

@@ -90,11 +90,19 @@ def test_newton_config_matches_jax():
     assert dataclasses.asdict(NewtonConfig()) == dataclasses.asdict(JaxNewtonConfig())
 
 
-@pytest.mark.parametrize("kw,item", [(dict(upo=True), "item 12"), (dict(forced=True), "item 12")],
-                         ids=["upo", "forced"])
-def test_unported_newton_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        newton_krylov(None, None, 1.0, 1, **kw)
+@pytest.mark.parametrize("kw", [dict(upo=True), dict(forced=True)], ids=["upo", "forced"])
+def test_unported_newton_options_raise(runs, kw):
+    # both orbit options are ported (tests/test_torch_upo*.py); together
+    # they raise, as in JAX, and each alone runs: one iteration on a 2-step
+    # horizon returns the period (moved by the bordered solve for a UPO,
+    # the fixed forcing period for a forced orbit)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        newton_krylov(None, None, 1.0, 1, upo=True, forced=True)
+    ns, u0 = runs[4], runs[5]
+    res = newton_krylov(ns, torch.as_tensor(u0), horizon=0.02, nsteps=2, k_dim=3,
+                        cfg=NewtonConfig(**dict(NEWTON, max_iter=1, gmres_restarts=1)), **kw)
+    assert len(res.history) == 1 and np.isfinite(res.period)
+    assert (res.period != 0.02) if kw.get("upo") else (res.period == 0.02)
 
 
 def test_finite_difference_is_ignored_as_in_jax(runs):

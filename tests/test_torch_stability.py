@@ -17,7 +17,6 @@ from nekstab_next_tpu.config import SolverConfig as JaxSolverConfig
 from nekstab_next_tpu.postproc import wave_maker as jax_wave_maker
 from nekstab_next_tpu_torch.algorithms import (
     linear_stability_analysis,
-    transient_growth_analysis,
     velocity_space,
 )
 from nekstab_next_tpu_torch.interop import sem_arrays, sem_from_arrays
@@ -26,6 +25,7 @@ from nekstab_next_tpu_torch.ops.core import SEM
 from nekstab_next_tpu_torch.config import SolverConfig
 from nekstab_next_tpu_torch.postproc import wave_maker
 from nekstab_next_tpu_torch.stepper import NavierStokes
+from nekstab_next_tpu_torch.stepper.linearized import FloquetOperator
 
 MESH = dict(nr=4, ntheta=8, order=6)
 # 3 steps a matvec (cut for the test's time), one Krylov-Schur pass
@@ -110,10 +110,12 @@ def test_cavity_adjoint_spectrum_equals_direct():
 
 
 def test_unported_analyses_raise(results):
+    # floquet=True is ported (tests/test_torch_orbit.py holds its
+    # operator); coupled scalars are not, in either entry's operator
     _, sem, _ = results
-    with pytest.raises(NotImplementedError, match="item 12"):
-        transient_growth_analysis(None, None, 1.0, 1, floquet=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        linear_stability_analysis(None, None, 1.0, 1, floquet=True)
     with pytest.raises(NotImplementedError, match="item 10"):
         linear_stability_analysis(None, None, 1.0, 1, base_T=torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        linear_stability_analysis(None, None, 1.0, 1, floquet=True, base_T=torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        FloquetOperator(None, None, base_T=torch.zeros(1))

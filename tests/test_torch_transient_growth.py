@@ -114,5 +114,7 @@ def test_seed_inside_the_sponge_raises():
     x0 = torch.ones_like(base) * (case.sem.bms == 0)[..., None]
     with pytest.raises(ValueError, match="zero energy"):
         transient_growth_analysis(ns, base, horizon=ns.dt, nsteps=1, x0=x0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        transient_growth_analysis(ns, base, horizon=ns.dt, nsteps=1, floquet=True)
+    # about a periodic base (floquet=True) the seed is held to the same
+    # measured subspace
+    with pytest.raises(ValueError, match="zero energy"):
+        transient_growth_analysis(ns, base, horizon=ns.dt, nsteps=1, x0=x0, floquet=True)

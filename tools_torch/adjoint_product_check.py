@@ -75,7 +75,7 @@ def main() -> None:
                           torch.zeros_like(weight))
 
         def apply(w):
-            ct = op._tangent0(w * weight)
+            ct = op.steps.fields(w * weight)
             for i in reversed(range(op.nsteps)):
                 (ct,) = vjps[min(i, 2)](ct)
             return ct[0] * inv * s.vmask
