@@ -61,22 +61,36 @@ source, sm_90a, all at once) and drives:
    cycles in f64 from the march;
 6. periodic bases and forced response: on ``examples/cylinder_upo.py``'s
    192-element Re = 100 mesh with its f32 K1/K2 solver, the period map of
-   ``upo_out/UPO_cyl_00001.npz`` over 1,604 steps, the 50-step orbit
-   tangent against the plain versions and f64 central differences, two
-   full-period Floquet matvecs on one operator (3 x 1,604 launches of each
-   kernel: the orbit is stored once), the orbit's neutral phase mode, the
-   f64 Floquet adjoint identity and the f32 Floquet rmatvec against the
-   plain versions (its backward's launches), and the example's projected
-   time; on ``examples/cylinder_resolvent_sweep.py``'s Re = 50 mesh, the
+   ``upo_out/UPO_cyl_00001.npz`` over 1,604 steps (the orbit the
+   full-period Floquet operator stores), the 50-step orbit tangent against
+   the plain versions and f64 central differences, one full-period Floquet
+   matvec on the stored orbit and two 50-step ones on one operator (3 x 50
+   launches of each kernel: the orbit is stored once), the orbit's neutral
+   phase mode, the f64 Floquet adjoint identity and the f32 Floquet
+   rmatvec against the plain versions (its backward's launches), and the
+   example's projected time; on ``examples/cylinder_resolvent_sweep.py``'s
+   Re = 50 mesh, the
    residual of ``resolvent_out/BF_cyl_00001.npz`` under the f64 plain
    step, the forced tangent integration at omega = 0.78 against the plain
    versions (64 steps) and over a whole period (2,176 launches of each),
    its transpose identity in f64, and the projected time of an R(omega)
-   apply and of an svds.
+   apply and of an svds;
+7. the f64 3-D PnPn-2 step (no kernel: the JAX package's 3-D ``'pnpn2'``
+   step runs none) on ``examples_torch/cube_transient_growth.py``'s case
+   (184 elements at order 4, ``'fdm'``, 1e-7/1e-8) about the JAX run's
+   ``cube_out/BF_cube_00001.npz``: 50 steps restarted from it against the
+   JAX step's |du/dt| (``tools_torch/cube_restart_check.py``) with each
+   solve's CG iterations, the G(2.0) matvec and rmatvec (69 steps) with
+   the adjoint identity (the example's gate, 1e-6) and their times, the
+   projected minutes of the march and of G(2.0) and G(6.0) from
+   ``cube_out/``'s matvec counts, the ``'block'`` and ``'schwarz'`` set-up
+   and pressure iterations on one step beside ``'fdm'``, and the 3-D rung:
+   a 10-step ``'pnpn2'`` matvec on phase 2's 1,472-element cube beside its
+   ``'laplacian'`` one.
 
 Each path is driven with every kernel's launch count set to 0 just before
-it and read just after.  Every phase is fatal on failure.  Imports nothing
-of JAX.
+it and read just after.  Every phase is fatal on failure and prints its
+wall seconds (``phase N name: ... s wall``).  Imports nothing of JAX.
 
 Output: one line per result, then a ``{"kernels": [...]}`` JSON line (each
 kernel's launches on its path, max abs error against its plain version,
@@ -90,10 +104,10 @@ the G(1.723) run, max abs error against the plain version on the step
 mesh, iterations of each recorded solve, ``bdf3_solve``: one BDF3
 solve's kernel and plain times, iterations and bound, and the step time;
 and ``periodic``: launches on phase 6's run, max abs error against the
-plain versions there, the two orbit matvecs', the Floquet rmatvec
-backward's and the particular solution's launches, and the step, matvec
-and primal times; K4 once per cube shape, with its ``shape``), the
-card's name and power limit, and last
+plain versions there, the two 50-step orbit matvecs', the Floquet
+rmatvec backward's and the particular solution's launches, and the step,
+full-period matvec and primal times; K4 once per cube shape, with its
+``shape``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
 port's package beside this script.
@@ -195,6 +209,18 @@ SWEEP_BF = dict(pressure_tol=1e-8, velocity_tol=1e-9, pressure_precond="block")
 SWEEP_OMEGA = 0.78
 SWEEP_CUT = 64
 SWEEP_T_STEPS = 16
+# the 3-D PnPn-2 step: examples_torch/cube_transient_growth.py's case (184
+# elements at order 4, f64, 'pnpn2' with 'fdm', its tolerances) about the
+# JAX package's recorded run in cube_out/ (its march's base flow, and
+# G(2.0), G(6.0) with their matvec counts)
+CUBE_EXAMPLE = "examples_torch/cube_transient_growth.py"
+CUBE_OUT = "cube_out"
+CUBE_MARCH = 50
+CUBE_G_T = 2.0
+# |du/dt| ~ ||u_50 - u_0|| / (50 dt) of the JAX step from that base flow
+# (a fresh state: zero pressure, the BDF ramp), on the CPU by
+# tools_torch/cube_restart_check.py; the port's CPU step reads 2.6738579525e-4
+CUBE_RESTART = 2.6738579526e-4
 # published H100 SXM peaks: device memory and float32 outside the tensor
 # cores
 HBM_BYTES_PER_S = 3.35e12
@@ -330,6 +356,13 @@ def check_k4_sweep(dev) -> float:
                     f"E = 1, {2 * per + 1}, {per * (fit + 1) + 1} on grids {grids}: rel "
                     + ", ".join(f"{r:.2e}" for r in rels) + " (bound 1e-5)")
     return worst
+
+
+def phase_wall(name: str, t0: float) -> float:
+    """Log a phase's wall seconds since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    log(f"phase {name}: {now - t0:.1f} s wall")
+    return now
 
 
 def card_line() -> str:
@@ -993,13 +1026,13 @@ def fused_ir_phase(tag: str, dev, pipe: dict) -> dict:
             "path": path, "iterations": iters, "solve": solve, "ms": ms}
 
 
-def load_bfs_example():
-    """examples_torch/bfs_transient_growth.py as a module: its presets,
-    build_case and f32_solver."""
+def load_example(path: str, name: str):
+    """An example script of the repository as a module (its presets, case
+    builders and stage functions)."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BFS_EXAMPLE)
-    spec = importlib.util.spec_from_file_location("bfs_transient_growth_torch", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -1024,7 +1057,7 @@ def bfs_phase(tag: str, dev) -> dict:
     from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
 
     root = os.path.dirname(os.path.abspath(__file__))
-    ex = load_bfs_example()
+    ex = load_example(BFS_EXAMPLE, "bfs_transient_growth_torch")
     P = ex.PRESETS["barkley"]
 
     # ---- B1. the f64 'schwarz' set-up and its pressure iterations --------
@@ -1247,18 +1280,20 @@ def periodic_phase(tag: str, dev) -> dict:
         f"Re {case.reynolds}), T {T:.6f} in {N} steps of {dt:.7g}, f32 K1/K2 caps "
         f"{fp.maxiter}/{fv.maxiter}")
 
-    # ---- U1. the period map ----------------------------------------------
+    # ---- U1. the period map: the orbit stored by the full-period operator --
+    op = FloquetOperator(ns, u, nsteps=N)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    phi = ns.propagator(u, N)
+    steps = op._orbit()
     take()
     t_period = time.perf_counter() - t0
-    r_map = norm(phi - u)
+    r_map = norm(steps.final - u)
+    primal = dict(path)
     log(f"periodic: ||Phi_T(u) - u|| = {r_map:.4e} (bound 5e-3; the TPU's f32 Newton "
         f"stopped at {upo['residual']:.4e}), {t_period:.2f} s ({1e3 * t_period / N:.3f} ms "
-        f"a step)")
-    if not (r_map <= 5e-3):
-        fail(f"the loaded orbit's period map residual {r_map:.4e}")
+        f"a step), the orbit stored by the full-period FloquetOperator: launches {primal}")
+    if not (r_map <= 5e-3) or primal != {k: N for k in primal}:
+        fail(f"the loaded orbit's period map residual {r_map:.4e}, launches {primal}")
 
     # ---- U2. the orbit tangent at 50 steps --------------------------------
     q = sem.vmask * u  # a smooth input
@@ -1280,28 +1315,31 @@ def periodic_phase(tag: str, dev) -> dict:
     if not (r_plain <= 1e-3 and r_fd <= 1e-3):
         fail(f"orbit tangent: vs plain {r_plain:.3e}, vs f64 differences {r_fd:.3e}")
 
-    # ---- U3. the full-period orbit operator: two matvecs ------------------
+    # ---- U3. the full-period orbit matvec; the orbit stored once ----------
     qdot = (ns.propagator(u, 1) - u) / dt
     take()
-    op = FloquetOperator(ns, u, nsteps=N)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     Mq = op.matvec(qdot)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    Mq2 = op.matvec(qdot)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    ms_matvec, ms_primal = 1e3 * (time.perf_counter() - t0), 1e3 * t_period
+    full = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+    take()
+    neutral = norm(Mq - qdot) / norm(qdot)
+    log(f"periodic: a full-period matvec on the stored orbit launched {full} (expected {N} "
+        f"each), {ms_matvec:.1f} ms, the stored primal {ms_primal:.1f} ms; monodromy drift "
+        f"{op.monodromy_drift:.4e}")
+    if full != {k: N for k in full}:
+        fail(f"a full-period orbit matvec launched {full}, expected {N} each")
+    short = FloquetOperator(ns, u, nsteps=NSTEPS)
+    Ms = short.matvec(qdot)
+    Ms2 = short.matvec(qdot)
     launches = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
     take()
-    ms_matvec, ms_primal = 1e3 * (t2 - t1), 1e3 * (t1 - t0) - 1e3 * (t2 - t1)
-    neutral = norm(Mq - qdot) / norm(qdot)
-    log(f"periodic: two full-period matvecs on one FloquetOperator launched {launches} "
-        f"(3 x {N} each: the orbit is stored once); {ms_matvec:.1f} ms a matvec, "
-        f"{ms_primal:.1f} ms the stored primal; equal bits {torch.equal(Mq, Mq2)}; "
-        f"monodromy drift {op.monodromy_drift:.4e}")
-    if launches != {k: 3 * N for k in launches} or not torch.equal(Mq, Mq2):
-        fail(f"two orbit matvecs launched {launches}, expected 3 x {N} each")
+    log(f"periodic: two {NSTEPS}-step matvecs on one FloquetOperator launched {launches} "
+        f"(3 x {NSTEPS} each: the orbit is stored once); equal bits {torch.equal(Ms, Ms2)}")
+    if launches != {k: 3 * NSTEPS for k in launches} or not torch.equal(Ms, Ms2):
+        fail(f"two orbit matvecs launched {launches}, expected 3 x {NSTEPS} each")
     log(f"periodic: neutral phase mode ||M qdot - qdot|| / ||qdot|| = {neutral:.4e} "
         f"(bound 5e-2)")
     if not (neutral <= 5e-2):
@@ -1417,6 +1455,173 @@ def periodic_phase(tag: str, dev) -> dict:
                    "particular_step": 1e3 * t_part / spp}}
 
 
+@contextlib.contextmanager
+def recording_pcg(iters: list):
+    """Record (solve, CG iterations) of every plain ``pcg`` the stepper
+    runs: 'velocity' for a solve with a component axis, else 'pressure'.
+    Synchronises once a solve."""
+    from nekstab_next_tpu_torch.ops import cg as cg_mod
+
+    pcg = cg_mod.pcg
+
+    def run(A, b, *args, **kw):
+        x, k = pcg(A, b, *args, **dict(kw, return_iters=True))
+        iters.append(("velocity" if b.dim() == 5 else "pressure", k))
+        return x
+
+    cg_mod.pcg = run
+    try:
+        yield
+    finally:
+        cg_mod.pcg = pcg
+
+
+def iteration_summary(iters: list, name: str) -> str:
+    ks = [k for n, k in iters if n == name]
+    return f"{name} {min(ks)}-{max(ks)} (mean {np.mean(ks):.1f}, first {ks[:3]})"
+
+
+def cube3d_phase(tag: str, dev, cube: dict) -> dict:
+    """The f64 3-D PnPn-2 step on the cube example's case about
+    ``cube_out/BF_cube_00001.npz``: a march from the loaded base flow, the
+    G(2.0) matvec and rmatvec with their adjoint identity, the projected
+    svds minutes, the 'block' and 'schwarz' set-ups and iterations beside
+    'fdm', and the 3-D rung (a 10-step 'pnpn2' matvec on phase 2's
+    1,472-element cube beside its 'laplacian' one); fails on any check.
+    ``cube``: phase 2's cube SEM, its stepper arguments, base and input
+    and its f64 'laplacian' matvec time."""
+    import dataclasses
+
+    import torch
+    from nekstab_next_tpu_torch.algorithms.stability import velocity_space
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.io import load_field
+    from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+    from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ex = load_example(CUBE_EXAMPLE, "cube_transient_growth_torch")
+    with open(os.path.join(root, CUBE_OUT, "growth.json")) as f:
+        growth = json.load(f)
+    t0 = time.perf_counter()
+    case = ex.make_case(dev)
+    sem = case.sem
+    ns = case.make_ns()
+    bf = load_field(os.path.join(root, CUBE_OUT, "BF_cube_00001.npz"))
+    base = torch.as_tensor(bf.u, device=dev)
+    log(f"cube3d: {CUBE_OUT}/BF_cube_00001.npz on {CUBE_EXAMPLE}'s case ({sem.nelem} "
+        f"elements, n={sem.n}, {case.mesh.npoints * 3} velocity dof, dt={case.dt:.6g}), f64 "
+        f"'{ns._scheme}' with '{case.solver.pressure_precond}' at "
+        f"{case.solver.pressure_tol:g}/{case.solver.velocity_tol:g}, set-up "
+        f"{time.perf_counter() - t0:.1f} s; no kernel on this path (fused solves "
+        f"{ns.fused_v is not None}, K4 {ns.mixed is not None})")
+    if (sem.nelem != growth["nelem"] or tuple(base.shape) != tuple(sem.bm.shape) + (3,)
+            or ns._scheme != "pnpn2" or ns.fused_v is not None or ns.mixed is not None):
+        fail(f"the cube case: {sem.nelem} elements, base {tuple(base.shape)}, scheme "
+             f"{ns._scheme}")
+
+    # ---- C1. a march from the loaded base flow ---------------------------
+    iters = []
+    with recording_pcg(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = ns.advance(ns.make_state(base), CUBE_MARCH)
+        torch.cuda.synchronize()
+        t_march = time.perf_counter() - t0
+    res = ex.velocity_change(sem, st.u - base) / (CUBE_MARCH * case.dt)
+    r_restart = abs(res / CUBE_RESTART - 1.0)
+    log(f"cube3d: {CUBE_MARCH} steps from the loaded base flow (zero pressure, BDF ramp): "
+        f"|du/dt| ~ {res:.10e}, the JAX step's {CUBE_RESTART:.10e} (rel {r_restart:.3e}, bound "
+        f"1e-3; the JAX march stopped at {bf.meta['residual']:.3e} with its pressure), "
+        f"{1e3 * t_march / CUBE_MARCH:.2f} ms a step (a host sync a solve); CG iterations a "
+        f"solve: {iteration_summary(iters, 'velocity')}, {iteration_summary(iters, 'pressure')}")
+    if not (bool(torch.isfinite(st.u).all()) and r_restart < 1e-3):
+        fail(f"the 3-D step moves the loaded base flow at |du/dt| {res:.4e}, not the JAX "
+             f"step's {CUBE_RESTART:.4e}")
+
+    # ---- C2. the G(2.0) matvec and rmatvec, the adjoint identity ---------
+    point = next(p for p in growth["points"] if p["t"] == CUBE_G_T)
+    nsteps = max(int(round(CUBE_G_T / case.dt)), 1)
+    if nsteps != point["nsteps"]:
+        fail(f"G({CUBE_G_T}) takes {nsteps} steps here, {point['nsteps']} in {CUBE_OUT}")
+    op = LinearizedOperator(ns, base, nsteps=nsteps)
+    space = velocity_space(sem)
+    rng = np.random.default_rng(11)
+    x0, yv = (sem.vmask * torch.as_tensor(rng.standard_normal(tuple(base.shape)), device=dev)
+              for _ in range(2))
+    # the identity's two calls are the timed ones (the rmatvec's first call
+    # builds its three per-stage vjps: one tangent step each)
+    times, out = {}, {}
+    for name, fn, arg in (("matvec", op.matvec, x0), ("rmatvec", op.rmatvec, yv)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(arg)
+        torch.cuda.synchronize()
+        times[name] = 1e3 * (time.perf_counter() - t0)
+    Mx, Mty = out["matvec"], out["rmatvec"]
+    a1, a2 = float(space.dot(Mx, yv)), float(space.dot(x0, Mty))
+    adj = abs(a1 - a2) / abs(a1)
+    log(f"cube3d: G({CUBE_G_T}) operator, {nsteps} steps: adjoint identity <Mq,w> "
+        f"{a1:.15e} vs <q,M*w> {a2:.15e}, rel {adj:.3e} (bound 1e-6, the example's gate); "
+        f"matvec {times['matvec']:.1f} ms ({times['matvec'] / nsteps:.2f} ms a step), rmatvec "
+        f"{times['rmatvec']:.1f} ms ({times['rmatvec'] / nsteps:.2f} ms a step, its vjps' "
+        f"build included)")
+    if not (adj < 1e-6 and bool(torch.isfinite(Mx).all()) and bool(torch.isfinite(Mty).all())):
+        fail(f"the 3-D adjoint identity: rel {adj:.3e}")
+
+    # ---- C3. projected minutes of the example ----------------------------
+    pair_step = (times["matvec"] + times["rmatvec"]) / nsteps
+    with open(os.path.join(root, CUBE_OUT, "report.json")) as f:
+        march_steps = json.load(f)["baseflow"]["steps"]
+    parts = [f"march {march_steps} steps x {1e3 * t_march / CUBE_MARCH:.2f} ms = "
+             f"{march_steps * t_march / CUBE_MARCH / 60:.1f} min"]
+    for p in growth["points"]:
+        parts.append(f"G({p['t']:g}) {p['n_matvecs']} matvec + rmatvec pairs x {p['nsteps']} "
+                     f"steps x {pair_step:.2f} ms = {p['n_matvecs'] * p['nsteps'] * pair_step / 6e4:.1f} min")
+    log(f"projection {tag} cube3d: " + "; ".join(parts))
+
+    # ---- C4. 'block' and 'schwarz' beside 'fdm' ---------------------------
+    steps = {}
+    for pp in ("fdm", "block", "schwarz"):
+        c = dataclasses.replace(case, solver=dataclasses.replace(case.solver, pressure_precond=pp))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nsp = c.make_ns()
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        it = []
+        with recording_pcg(it):
+            u1 = nsp.step(nsp.make_state(base)).u
+        steps[pp] = u1
+        k = [k for n, k in it if n == "pressure"]
+        log(f"cube3d: '{pp}' pressure preconditioner: set-up {t_setup:.2f} s, one step from the "
+            f"base flow: pressure CG {k} iterations to {c.solver.pressure_tol:g}, velocity "
+            f"{[k for n, k in it if n == 'velocity']}, |u1 - u1(fdm)| rel "
+            f"{rel(u1, steps['fdm']):.3e} (bound 1e-6)")
+        if not (bool(torch.isfinite(u1).all()) and rel(u1, steps["fdm"]) < 1e-6):
+            fail(f"the '{pp}' step: rel {rel(u1, steps['fdm']):.3e} from the 'fdm' step")
+
+    # ---- C5. the 3-D rung: 'pnpn2' beside 'laplacian' on the larger cube --
+    s3 = cube["sem"]
+    ns3 = NavierStokes(s3, viscosity=cube["nu"], dt=cube["dt"], u_bc=cube["u_bc"],
+                       solver=SolverConfig(**CUBE_TOL))
+    op3 = LinearizedOperator(ns3, cube["base"], nsteps=CUBE_NSTEPS)
+    q = {"x": cube["q"]}
+
+    def chained():
+        q["x"] = op3.matvec(q["x"])
+
+    ms = cuda_ms(chained, 1)
+    if not bool(torch.isfinite(q["x"]).all()):
+        fail("the 1,472-element 'pnpn2' matvec is not finite")
+    log(f"timing {tag} cube matvec ({CUBE_NSTEPS} steps) f64 'pnpn2', example tolerances, "
+        f"'fdm': {ms:.2f} ms/matvec ({ms / CUBE_NSTEPS:.2f} ms a step, {s3.nelem} elements, "
+        f"n={s3.n}), f64 'laplacian' (phase 2) {cube['laplacian_ms']:.2f} ms/matvec")
+    return {"march_step_ms": 1e3 * t_march / CUBE_MARCH, "matvec_ms": times["matvec"],
+            "rmatvec_ms": times["rmatvec"], "adjoint_rel": adj, "residual": res,
+            "rung_ms": ms}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device -----------------------------------------------------
@@ -1441,6 +1646,8 @@ def main() -> None:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+
+    t_phase = phase_wall("0 device and build", t_start)
 
     # ---- 3. K1, K2 against their plain versions: flagship, larger mesh -
     case = make_case(torch.float32, CAPS_F32, fused=True)
@@ -1554,6 +1761,8 @@ def main() -> None:
     }
     log(f"bounds: K1 {it1} iterations -> {bounds['fused_helmholtz_cg']}, "
         f"K2 {it2} iterations -> {bounds['fused_pressure_cg']}")
+
+    t_phase = phase_wall("1 flagship (K1, K2)", t_phase)
 
     # ==== the 3-D mixed-precision path (K4) ==============================
     from nekstab_next_tpu_torch.cases.cube import CubeRoughnessCase
@@ -1676,17 +1885,35 @@ def main() -> None:
             f"{100 * b4['bound_ms'] / ms_cold:.1f} % flushed, "
             f"{100 * b4['bound_ms'] / ms_warm:.1f} % back to back")
 
+    t_phase = phase_wall("2 cube mixed (K4)", t_phase)
+
     # ==== the Krylov layer and the cylinder pipeline (K1, K2 again) ======
     pipe = pipeline_phase(tag, dev)
+    t_phase = phase_wall("3 pipeline", t_phase)
 
     # ==== the fused-IR mixed-precision path (K1, K2 under f64 state) ======
     ir = fused_ir_phase(tag, dev, pipe)
+    t_phase = phase_wall("4 fused-IR", t_phase)
 
     # ==== the backward-facing step: 'schwarz', K1/K2 on a graded mesh ====
     bfs = bfs_phase(tag, dev)
+    t_phase = phase_wall("5 bfs", t_phase)
 
     # ==== periodic bases and forced response (K1, K2 along an orbit) =====
     per = periodic_phase(tag, dev)
+    t_phase = phase_wall("6 periodic", t_phase)
+
+    # ==== the 3-D PnPn-2 step: the cube example's case (no kernel) =======
+    fv.launches = fp.launches = k4m.launches = 0
+    cube3d_phase(tag, dev, {
+        "sem": s3, "nu": nu3, "dt": cube.dt, "u_bc": cube.u_bc, "base": base3, "q": q3,
+        "laplacian_ms": rates3["f64 'laplacian', example tolerances"]})
+    torch.cuda.synchronize()
+    stray = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches,
+             "fused_helmholtz": k4m.launches}
+    if any(stray.values()):
+        fail(f"the 3-D 'pnpn2' path launched a kernel: {stray}")
+    t_phase = phase_wall("7 cube3d", t_phase)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],

@@ -3,6 +3,7 @@ from .mesh import BoundaryCondition, Mesh2D, build_mesh
 from .box import box_mesh_2d
 from .cylinder import cylinder_mesh
 from .mesh3 import Mesh3D, box_mesh_3d, build_mesh_3d, face_node_indices
+from .re2 import Re2Data, mesh3_from_re2, mesh_from_re2, read_re2, write_re2
 
 __all__ = [
     "gll_points_weights",
@@ -18,4 +19,9 @@ __all__ = [
     "build_mesh_3d",
     "box_mesh_3d",
     "face_node_indices",
+    "Re2Data",
+    "read_re2",
+    "write_re2",
+    "mesh_from_re2",
+    "mesh3_from_re2",
 ]

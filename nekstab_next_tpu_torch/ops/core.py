@@ -9,7 +9,9 @@ Differences from the JAX ``SEM``:
 
 * ``SEM`` is an ``nn.Module``; every factor is a registered buffer on the
   device given at construction (the current CUDA device by default).
-  Single device, 2-D only; the 3-D ``SEM3`` is in ``ops/core3.py``.
+  Single device, 2-D only; the 3-D ``SEM3`` is in ``ops/core3.py``, and
+  what both share (the pressure preconditioners, the reductions) in
+  :class:`SEMBase`.
 * ``dssum`` is a gather over the node->copies table (:func:`gather_table`):
   each local node sums every copy of its global node in table order.  No
   scatter-add, whose CUDA atomics would make sums nondeterministic; copies
@@ -220,6 +222,29 @@ class SEMBase(nn.Module):
         vt = gather_table(cid.reshape(-1), self.pc_nc)
         self.register_buffer("_vtx_table", torch.as_tensor(vt, device=device))
 
+        pbi = a.get("pblock_inv")
+        self.register_buffer(
+            "pblock_inv",
+            None if pbi is None else torch.tensor(np.asarray(pbi), dtype=dtype, device=device),
+        )
+        # 'schwarz': (pidx, Pinv, w, copies) of ops/schwarz.py
+        # build_pressure_patches and the P0 coarse inverse; velocity 'block':
+        # the block inverses by (h1, h2).  Built by the setup_* methods, or
+        # carried in from the JAX SEM's arrays (interop.py).
+        self.pschwarz = self.p0Acinv = None
+        self.vblock_inv = {}
+        if a.get("pschwarz") is not None:
+            from .schwarz import patch_copies
+
+            pidx, Pinv, w = (np.asarray(x) for x in a["pschwarz"])
+            f = lambda x: torch.tensor(x, dtype=dtype, device=device)
+            self.pschwarz = (
+                torch.as_tensor(pidx.astype(np.int64), device=device), f(Pinv), f(w),
+                torch.as_tensor(patch_copies(pidx, self.nelem * self.npr ** self.ndim),
+                                device=device))
+        if a.get("p0Acinv") is not None:
+            self.p0Acinv = torch.tensor(np.asarray(a["p0Acinv"]), dtype=dtype, device=device)
+
     # ------------------------------------------------------------------
     # gather-scatter
     # ------------------------------------------------------------------
@@ -258,181 +283,14 @@ class SEMBase(nn.Module):
         return h1 * self.stiffness_local(u) + h2 * self.bm * u
 
     # ------------------------------------------------------------------
-    # inner products / norms
-    # ------------------------------------------------------------------
-    def inner(self, u: torch.Tensor, v: torch.Tensor, masked: bool = True) -> torch.Tensor:
-        """Mass-weighted global inner product <u, v>_B (``masked`` uses the
-        sponge-masked weight bm1s)."""
-        w = self.bms if masked else self.bm
-        return torch.sum(u * v * self._bc(w, u))
-
-    def norm(self, u: torch.Tensor, masked: bool = True) -> torch.Tensor:
-        return torch.sqrt(self.inner(u, u, masked=masked))
-
-    def glsum(self, u: torch.Tensor) -> torch.Tensor:
-        return torch.sum(u)
-
-    def volume(self) -> torch.Tensor:
-        return self.glsum(self.bm)
-
-    def mean(self, u: torch.Tensor) -> torch.Tensor:
-        """Mass-weighted mean of a scalar field."""
-        return torch.sum(u * self.bm) / self.volume()
-
-    # ------------------------------------------------------------------
-    # sponge (reference core/forcing.f90:82-252)
-    # ------------------------------------------------------------------
-    def set_sponge(self, strength_field) -> None:
-        """Install a sponge strength field lambda(x) >= 0; zeroes the
-        inner-product weight bm1s where the sponge acts."""
-        lam = torch.as_tensor(np.asarray(strength_field), dtype=self.dtype,
-                              device=self.device)
-        self.sponge = lam
-        self.bms = torch.where(lam > 0.0, torch.zeros_like(self.bm), self.bm)
-
-
-class SEM(SEMBase):
-    """Spectral-element operator context for one 2-D mesh on one device.
-
-    ``SEM(mesh, dtype=None, device=None)`` builds the factors from the mesh
-    (float64 unless ``dtype`` is given) on ``device`` (the current CUDA
-    device when None; raises without one, see :func:`resolve_device`);
-    :meth:`from_arrays` builds them from precomputed numpy arrays
-    (``interop.sem_from_arrays``).  ``axis_name`` (the JAX SEM's sharded
-    element axis) raises: the port is single-device."""
-
-    ndim = 2
-    float_keys = FLOAT_KEYS
-    _factors = staticmethod(sem_factors)
-
-    def _install(self, a: dict, dtype, device) -> None:
-        super()._install(a, dtype, device)
-        pbi = a.get("pblock_inv")
-        self.register_buffer(
-            "pblock_inv",
-            None if pbi is None
-            else torch.tensor(np.asarray(pbi), dtype=self.dtype, device=self.device),
-        )
-        # 'schwarz': (pidx, Pinv, w, copies) of ops/schwarz.py
-        # build_pressure_patches and the P0 coarse inverse; velocity 'block':
-        # the block inverses by (h1, h2).  Built by the setup_* methods, or
-        # carried in from the JAX SEM's arrays (interop.py).
-        self.pschwarz = self.p0Acinv = None
-        self.vblock_inv = {}
-        if a.get("pschwarz") is not None:
-            from .schwarz import patch_copies
-
-            pidx, Pinv, w = (np.asarray(x) for x in a["pschwarz"])
-            f = lambda x: torch.tensor(x, dtype=self.dtype, device=self.device)
-            self.pschwarz = (
-                torch.as_tensor(pidx.astype(np.int64), device=self.device), f(Pinv), f(w),
-                torch.as_tensor(patch_copies(pidx, self.nelem * self.npr ** 2),
-                                device=self.device))
-        if a.get("p0Acinv") is not None:
-            self.p0Acinv = torch.tensor(np.asarray(a["p0Acinv"]), dtype=self.dtype,
-                                        device=self.device)
-
-    # ------------------------------------------------------------------
-    # derivatives
-    # ------------------------------------------------------------------
-    def grad_ref(self, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Reference-element derivatives (u_xi, u_eta)."""
-        ur = torch.einsum("ai,eij->eaj", self.D, u)
-        us = torch.einsum("bj,eij->eib", self.D, u)
-        return ur, us
-
-    def grad_ref_t(self, wr: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-        """Transpose of :meth:`grad_ref`: D_r^T wr + D_s^T ws."""
-        return torch.einsum("ai,eaj->eij", self.D, wr) + torch.einsum(
-            "bj,eib->eij", self.D, ws
-        )
-
-    def grad(self, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Physical gradient (u_x, u_y) — the reference's ``gradm1``."""
-        ur, us = self.grad_ref(u)
-        return self.rx * ur + self.sx * us, self.ry * ur + self.sy * us
-
-    def div(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        ux, _ = self.grad(u)
-        _, vy = self.grad(v)
-        return ux + vy
-
-    def divv(self, u: torch.Tensor) -> torch.Tensor:
-        return self.div(u[..., 0], u[..., 1])
-
-    # ------------------------------------------------------------------
-    # weak-form elliptic operators (local, unassembled)
-    # ------------------------------------------------------------------
-    def stiffness_local(self, u: torch.Tensor) -> torch.Tensor:
-        """Local weak Laplacian K u (integral of grad(phi).grad(u))."""
-        return stiffness2(self.D, self.g11, self.g12, self.g22, u)
-
-    def stiffness_diag(self) -> torch.Tensor:
-        """Diagonal of the local stiffness (for Jacobi preconditioning)."""
-        D2 = self.D * self.D
-        d = torch.einsum("ai,eaj->eij", D2, self.g11) + torch.einsum(
-            "bj,eib->eij", D2, self.g22
-        )
-        dd = torch.diagonal(self.D)
-        return d + 2.0 * self.g12 * dd[:, None] * dd[None, :]
-
-    def fdm_inverse(self, h1, h2, rel: float = 1e-8) -> torch.Tensor:
-        """(nelem, n, n) inverse eigen-denominator of the FDM box operator.
-        The Neumann constant mode (lam=0 twice) has denom ~ h2*ab; below
-        ``rel`` times the lowest genuine mode's scale it takes that scale, so
-        the preconditioner stays SPD when h2=0.  ``fdm_apply`` uses
-        ``rel=1e-8``; the fused velocity solve (ops/fused_cg.py) ``1e-6``."""
-        lam = self.fdm_lam
-        a = self.fdm_len[:, 0][:, None, None]
-        b = self.fdm_len[:, 1][:, None, None]
-        denom = h1 * ((b / a) * lam[:, None] + (a / b) * lam[None, :]) + h2 * (a * b)
-        ref = h1 * (b / a + a / b) * lam[1] + h2 * (a * b)
-        ok = denom > rel * ref
-        return torch.where(ok, 1.0 / torch.where(ok, denom, torch.ones_like(denom)),
-                           1.0 / ref.clamp_min(1e-30))
-
-    def fdm_apply(self, r: torch.Tensor, h1, h2, rel: float = 1e-8) -> torch.Tensor:
-        """Approximate elementwise inverse of (h1 K + h2 B) by tensor-product
-        fast diagonalization on each element's bounding box (ops/fdm.py).
-        Accepts trailing component axes: (nelem, n, n, ...)."""
-        S = self.fdm_S
-        inv = self._bc(self.fdm_inverse(h1, h2, rel), r)
-        t = torch.einsum("ia,jb,eij...->eab...", S, S, r) * inv
-        return torch.einsum("ia,jb,eab...->eij...", S, S, t)
-
-    # ------------------------------------------------------------------
-    # PnPn-2 pressure space operators
+    # PnPn-2 pressure preconditioners and velocity blocks; a subclass
+    # supplies lift_p/restrict_p (R^T, R between Gauss and GLL), fdm_apply
+    # and coarse_apply_pressure
     # ------------------------------------------------------------------
     @property
     def p_shape(self):
-        return (self.nelem, self.npr, self.npr)
-
-    def div_to_p(self, u: torch.Tensor) -> torch.Tensor:
-        """Weak divergence into the P_{N-2} Gauss pressure space (the PnPn-2
-        D operator), integrated on the velocity GLL grid."""
-        d = self.bm * self.divv(u)
-        return torch.einsum("ia,jb,eij->eab", self.Jpg, self.Jpg, d)
-
-    def p_to_gll(self, p: torch.Tensor) -> torch.Tensor:
-        """Interpolate a Gauss pressure field to the velocity GLL nodes
-        (for output and post-processing only)."""
-        return torch.einsum("ia,jb,eab->eij", self.Jpg, self.Jpg, p)
-
-    def grad_from_p(self, q: torch.Tensor) -> torch.Tensor:
-        """The exact transpose of :meth:`div_to_p` (the weak pressure
-        gradient D^T), (nelem, npr, npr) -> (nelem, n, n, 2)."""
-        zb = self.bm * torch.einsum("ia,jb,eab->eij", self.Jpg, self.Jpg, q)
-        u0 = self.grad_ref_t(self.rx * zb, self.sx * zb)
-        u1 = self.grad_ref_t(self.ry * zb, self.sy * zb)
-        return torch.stack([u0, u1], dim=-1)
-
-    def lift_p(self, r: torch.Tensor) -> torch.Tensor:
-        """Transpose-interpolation R^T of a Gauss field to the GLL grid."""
-        return torch.einsum("ai,bj,eab->eij", self.Jp, self.Jp, r)
-
-    def restrict_p(self, z: torch.Tensor) -> torch.Tensor:
-        """R z: GLL field back to the Gauss points (transpose of lift_p)."""
-        return torch.einsum("ai,bj,eij->eab", self.Jp, self.Jp, z)
+        """The P_{N-2} Gauss pressure space: (nelem, npr, .., npr)."""
+        return (self.nelem,) + (self.npr,) * self.ndim
 
     def pressure_precond_pnpn2(self, r: torch.Tensor) -> torch.Tensor:
         """Two-level FDM + Q1 coarse preconditioner for E = D M^-1 D^T,
@@ -490,6 +348,172 @@ class SEM(SEMBase):
             self.vblock_inv[key] = build_velocity_blocks(self, h1, h2)
         return self.vblock_inv[key]
 
+    # ------------------------------------------------------------------
+    # inner products / norms
+    # ------------------------------------------------------------------
+    def inner(self, u: torch.Tensor, v: torch.Tensor, masked: bool = True) -> torch.Tensor:
+        """Mass-weighted global inner product <u, v>_B (``masked`` uses the
+        sponge-masked weight bm1s)."""
+        w = self.bms if masked else self.bm
+        return torch.sum(u * v * self._bc(w, u))
+
+    def norm(self, u: torch.Tensor, masked: bool = True) -> torch.Tensor:
+        return torch.sqrt(self.inner(u, u, masked=masked))
+
+    def glsum(self, u: torch.Tensor) -> torch.Tensor:
+        return torch.sum(u)
+
+    def cgdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Multiplicity-weighted inner product (each global node counts
+        once), under which the assembled elliptic operators are
+        self-adjoint (Nek weights its solver dots by ``vmult``)."""
+        return torch.sum(a * b * self._bc(self.inv_mult, a))
+
+    def glmax(self, u: torch.Tensor) -> torch.Tensor:
+        return torch.max(u)
+
+    def volume(self) -> torch.Tensor:
+        return self.glsum(self.bm)
+
+    def mean(self, u: torch.Tensor) -> torch.Tensor:
+        """Mass-weighted mean of a scalar field."""
+        return torch.sum(u * self.bm) / self.volume()
+
+    # ------------------------------------------------------------------
+    # sponge (reference core/forcing.f90:82-252)
+    # ------------------------------------------------------------------
+    def set_sponge(self, strength_field) -> None:
+        """Install a sponge strength field lambda(x) >= 0; zeroes the
+        inner-product weight bm1s where the sponge acts."""
+        lam = torch.as_tensor(np.asarray(strength_field), dtype=self.dtype,
+                              device=self.device)
+        self.sponge = lam
+        self.bms = torch.where(lam > 0.0, torch.zeros_like(self.bm), self.bm)
+
+
+class SEM(SEMBase):
+    """Spectral-element operator context for one 2-D mesh on one device.
+
+    ``SEM(mesh, dtype=None, device=None)`` builds the factors from the mesh
+    (float64 unless ``dtype`` is given) on ``device`` (the current CUDA
+    device when None; raises without one, see :func:`resolve_device`);
+    :meth:`from_arrays` builds them from precomputed numpy arrays
+    (``interop.sem_from_arrays``).  ``axis_name`` (the JAX SEM's sharded
+    element axis) raises: the port is single-device."""
+
+    ndim = 2
+    float_keys = FLOAT_KEYS
+    _factors = staticmethod(sem_factors)
+
+    # ------------------------------------------------------------------
+    # derivatives
+    # ------------------------------------------------------------------
+    def grad_ref(self, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Reference-element derivatives (u_xi, u_eta)."""
+        ur = torch.einsum("ai,eij->eaj", self.D, u)
+        us = torch.einsum("bj,eij->eib", self.D, u)
+        return ur, us
+
+    def grad_ref_t(self, wr: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+        """Transpose of :meth:`grad_ref`: D_r^T wr + D_s^T ws."""
+        return torch.einsum("ai,eaj->eij", self.D, wr) + torch.einsum(
+            "bj,eib->eij", self.D, ws
+        )
+
+    def grad(self, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Physical gradient (u_x, u_y) — the reference's ``gradm1``."""
+        ur, us = self.grad_ref(u)
+        return self.rx * ur + self.sx * us, self.ry * ur + self.sy * us
+
+    def div(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        ux, _ = self.grad(u)
+        _, vy = self.grad(v)
+        return ux + vy
+
+    def divv(self, u: torch.Tensor) -> torch.Tensor:
+        return self.div(u[..., 0], u[..., 1])
+
+    def curl(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """z-vorticity dv/dx - du/dy (``comp_vort3`` 2-D)."""
+        _, uy = self.grad(u)
+        vx, _ = self.grad(v)
+        return vx - uy
+
+    # ------------------------------------------------------------------
+    # weak-form elliptic operators (local, unassembled)
+    # ------------------------------------------------------------------
+    def stiffness_local(self, u: torch.Tensor) -> torch.Tensor:
+        """Local weak Laplacian K u (integral of grad(phi).grad(u))."""
+        return stiffness2(self.D, self.g11, self.g12, self.g22, u)
+
+    def stiffness_diag(self) -> torch.Tensor:
+        """Diagonal of the local stiffness (for Jacobi preconditioning)."""
+        D2 = self.D * self.D
+        d = torch.einsum("ai,eaj->eij", D2, self.g11) + torch.einsum(
+            "bj,eib->eij", D2, self.g22
+        )
+        dd = torch.diagonal(self.D)
+        return d + 2.0 * self.g12 * dd[:, None] * dd[None, :]
+
+    def fdm_inverse(self, h1, h2, rel: float = 1e-8) -> torch.Tensor:
+        """(nelem, n, n) inverse eigen-denominator of the FDM box operator.
+        The Neumann constant mode (lam=0 twice) has denom ~ h2*ab; below
+        ``rel`` times the lowest genuine mode's scale it takes that scale, so
+        the preconditioner stays SPD when h2=0.  ``fdm_apply`` uses
+        ``rel=1e-8``; the fused velocity solve (ops/fused_cg.py) ``1e-6``."""
+        lam = self.fdm_lam
+        a = self.fdm_len[:, 0][:, None, None]
+        b = self.fdm_len[:, 1][:, None, None]
+        denom = h1 * ((b / a) * lam[:, None] + (a / b) * lam[None, :]) + h2 * (a * b)
+        ref = h1 * (b / a + a / b) * lam[1] + h2 * (a * b)
+        ok = denom > rel * ref
+        return torch.where(ok, 1.0 / torch.where(ok, denom, torch.ones_like(denom)),
+                           1.0 / ref.clamp_min(1e-30))
+
+    def fdm_apply(self, r: torch.Tensor, h1, h2, rel: float = 1e-8) -> torch.Tensor:
+        """Approximate elementwise inverse of (h1 K + h2 B) by tensor-product
+        fast diagonalization on each element's bounding box (ops/fdm.py).
+        Accepts trailing component axes: (nelem, n, n, ...)."""
+        S = self.fdm_S
+        inv = self._bc(self.fdm_inverse(h1, h2, rel), r)
+        t = torch.einsum("ia,jb,eij...->eab...", S, S, r) * inv
+        return torch.einsum("ia,jb,eab...->eij...", S, S, t)
+
+    # ------------------------------------------------------------------
+    # PnPn-2 pressure space operators
+    # ------------------------------------------------------------------
+    def div_to_p(self, u: torch.Tensor) -> torch.Tensor:
+        """Weak divergence into the P_{N-2} Gauss pressure space (the PnPn-2
+        D operator), integrated on the velocity GLL grid."""
+        d = self.bm * self.divv(u)
+        return torch.einsum("ia,jb,eij->eab", self.Jpg, self.Jpg, d)
+
+    def p_to_gll(self, p: torch.Tensor) -> torch.Tensor:
+        """Interpolate a Gauss pressure field to the velocity GLL nodes
+        (for output and post-processing only)."""
+        return torch.einsum("ia,jb,eab->eij", self.Jpg, self.Jpg, p)
+
+    def p_from_gll(self, p: torch.Tensor) -> torch.Tensor:
+        """Sample a GLL nodal pressure field at the Gauss pressure points
+        (e.g. an exact initial pressure)."""
+        return torch.einsum("ai,bj,eij->eab", self.Jp, self.Jp, p)
+
+    def grad_from_p(self, q: torch.Tensor) -> torch.Tensor:
+        """The exact transpose of :meth:`div_to_p` (the weak pressure
+        gradient D^T), (nelem, npr, npr) -> (nelem, n, n, 2)."""
+        zb = self.bm * torch.einsum("ia,jb,eab->eij", self.Jpg, self.Jpg, q)
+        u0 = self.grad_ref_t(self.rx * zb, self.sx * zb)
+        u1 = self.grad_ref_t(self.ry * zb, self.sy * zb)
+        return torch.stack([u0, u1], dim=-1)
+
+    def lift_p(self, r: torch.Tensor) -> torch.Tensor:
+        """Transpose-interpolation R^T of a Gauss field to the GLL grid."""
+        return torch.einsum("ai,bj,eab->eij", self.Jp, self.Jp, r)
+
+    def restrict_p(self, z: torch.Tensor) -> torch.Tensor:
+        """R z: GLL field back to the Gauss points (transpose of lift_p)."""
+        return torch.einsum("ai,bj,eij->eab", self.Jp, self.Jp, z)
+
     def coarse_apply_pressure(self, r: torch.Tensor) -> torch.Tensor:
         """Q1 vertex coarse-grid correction (Nek's XXT coarse solve role);
         the vertex sums gather over the vertex table in table order."""
@@ -514,3 +538,22 @@ class SEM(SEMBase):
 
     def convect(self, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return self.convect_weak(c[..., 0], c[..., 1], u)
+
+    def convect_colloc(self, cx, cy, u) -> torch.Tensor:
+        """Collocated (aliased) weak convection: B * (c . grad u)
+        (``SolverConfig(dealias=False)``)."""
+        ux, uy = self.grad(u)
+        return self.bm * (cx * ux + cy * uy)
+
+    def convect_colloc_v(self, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return self.convect_colloc(c[..., 0], c[..., 1], u)
+
+    # ------------------------------------------------------------------
+    # CFL (reference utils.f90 compute_cfl; used for dt selection)
+    # ------------------------------------------------------------------
+    def cfl(self, u: torch.Tensor, v: torch.Tensor, dt: float) -> torch.Tensor:
+        """Convective CFL number max |u.grad(xi)| dt / dxi_min."""
+        dz = float(np.min(np.diff(gll_points_weights(self.n)[0])))
+        ur = torch.abs(u * self.rx + v * self.ry)
+        us = torch.abs(u * self.sx + v * self.sy)
+        return self.glmax((ur + us) * dt / dz)

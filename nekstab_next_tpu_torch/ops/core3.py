@@ -1,18 +1,23 @@
 """3-D spectral-element operators on ``(nelem, n, n, n)`` fields.
 
-PyTorch port of ``nekstab_next_tpu/ops/core3.py`` for what the
-``'laplacian'`` pressure scheme and the mixed-precision step need: the
-direct-stiffness sum, gradients and divergence, the weak Helmholtz apply,
-the FDM element preconditioner, the Q1 coarse level, the dealiased
-convection and the mass-weighted reductions.  Same design as the 2-D
-:class:`~nekstab_next_tpu_torch.ops.core.SEM`, with which it shares
-:class:`~nekstab_next_tpu_torch.ops.core.SEMBase`: an ``nn.Module`` whose
+PyTorch port of ``nekstab_next_tpu/ops/core3.py``: the direct-stiffness
+sum, gradients, divergence and curl, the weak Helmholtz apply, the FDM
+element preconditioner, the Q1 coarse level, the PnPn-2 pressure space
+(P_{N-2} on Gauss points) with its three preconditioners, the dealiased and
+the collocated convection, the CFL number and the reductions.  Same design
+as the 2-D :class:`~nekstab_next_tpu_torch.ops.core.SEM`, with which it
+shares :class:`~nekstab_next_tpu_torch.ops.core.SEMBase` (the pressure
+preconditioners and the reductions among it): an ``nn.Module`` whose
 factors are buffers on one device, ``dssum`` as a gather over the
 node->copies table (no atomics), the Q1 vertex sums the same way.
 
-Not ported yet (ROADMAP item 15): the PnPn-2 pressure space (``div_to_p``,
-``p_to_gll``, its preconditioners), ``curl``, ``cfl`` and the collocated
-convection; they raise.
+Every tensor-product contraction runs one node axis at a time
+(:func:`along`, :func:`tensor3`), each a batched matmul on a view of its
+input: no einsum path search on the host and no permuted copies on the
+device.  The vector forms (``divv``, ``grad_from_p``) take all three
+components through each reference derivative at once.  The weak
+pressure gradient ``D^T`` is written out (:meth:`SEM3.grad_from_p`) where
+JAX takes ``jax.linear_transpose`` of ``div_to_p``.
 """
 
 from __future__ import annotations
@@ -39,11 +44,26 @@ FLOAT_KEYS3 = (
        "vmask", "pmask", "tmask", "bms", "sponge", "binv_assembled", "inv_mult",
        "Jd", "wf3", "jac_d")
     + tuple(k + "_d" for k in _METRICS)
-    + ("fdm_S", "fdm_lam", "fdm_len", "pc_Jc", "pc_Acinv")
+    + ("Jp", "Jpg", "bp", "fdm_S", "fdm_lam", "fdm_len", "pc_Jc", "pc_Acinv")
 )
 INT_KEYS3 = ("gid", "pc_cid")
 
-_PNPN2 = "is not ported for 3-D yet (ROADMAP item 15: 3-D PnPn-2)"
+
+def along(M: torch.Tensor, u: torch.Tensor, axis: int) -> torch.Tensor:
+    """sum_i M[a, i] u[.., i, ..] over node axis ``axis`` (1, 2 or 3) of a
+    (nelem, n, n, n, ...) tensor: one batched matmul on a view of u, the
+    axes before ``axis`` as the batch and those after it as the columns."""
+    shape = tuple(u.shape)
+    out = torch.matmul(M, u.reshape(math.prod(shape[:axis]), shape[axis], -1))
+    return out.reshape(shape[:axis] + (M.shape[0],) + shape[axis + 1:])
+
+
+def tensor3(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+            u: torch.Tensor) -> torch.Tensor:
+    """sum_ijk A[a, i] B[b, j] C[c, k] u[e, i, j, k, ...]: the three node
+    axes contracted one at a time, i then j then k (trailing component axes
+    allowed)."""
+    return along(C, along(B, along(A, u, 1), 2), 3)
 
 
 def stiffness3(D, g11, g12, g13, g22, g23, g33, u: torch.Tensor) -> torch.Tensor:
@@ -99,6 +119,15 @@ def sem3_factors(mesh: Mesh3D) -> dict:
     for k in _METRICS:
         a[k + "_d"] = interp3(getattr(mesh, k))
 
+    # PnPn-2 pressure space: P_{N-2} on (n-2)^3 Gauss points per element
+    zg, wg = gauss_points_weights(n - 2)
+    Jp = lagrange_interp_matrix(z, zg)  # (npr, n): GLL -> Gauss
+    a["Jp"] = Jp
+    a["Jpg"] = lagrange_interp_matrix(zg, z)  # (n, npr): Gauss -> GLL
+    wp3 = np.einsum("a,b,c->abc", wg, wg, wg)
+    a["bp"] = wp3 * np.einsum("ai,bj,ck,eijk->eabc", Jp, Jp, Jp, mesh.jac,
+                              optimize=True)
+
     S, lam = fdm_eigensetup(n)
     a["fdm_S"], a["fdm_lam"] = S, lam
     a["fdm_len"] = element_half_lengths_3d(mesh)
@@ -125,14 +154,25 @@ class SEM3(SEMBase):
     float_keys = FLOAT_KEYS3
     _factors = staticmethod(sem3_factors)
 
+    def _install(self, a: dict, dtype, device) -> None:
+        super()._install(a, dtype, device)
+        # the metric as one (nelem, n, n, n, 3, 3) buffer, [..., d, r] =
+        # d xi_r / d x_d: the vector forms (divv, grad_from_p) take all three
+        # components through each reference derivative at once
+        self.register_buffer("_metric", torch.stack([
+            torch.stack([self.drdx, self.dsdx, self.dtdx], dim=-1),
+            torch.stack([self.drdy, self.dsdy, self.dtdy], dim=-1),
+            torch.stack([self.drdz, self.dsdz, self.dtdz], dim=-1),
+        ], dim=-2))
+        self._fdm_inv = {}  # (h1, h2) -> the FDM's inverse eigen-denominators
+
     # ------------------------------------------------------------------
     # derivatives
     # ------------------------------------------------------------------
     def grad_ref(self, u: torch.Tensor):
-        ur = torch.einsum("ai,eijk->eajk", self.D, u)
-        us = torch.einsum("aj,eijk->eiak", self.D, u)
-        ut = torch.einsum("ak,eijk->eija", self.D, u)
-        return ur, us, ut
+        """Reference derivatives (u_r, u_s, u_t); trailing component axes
+        allowed."""
+        return along(self.D, u, 1), along(self.D, u, 2), along(self.D, u, 3)
 
     def grad(self, u: torch.Tensor):
         """Physical gradient (u_x, u_y, u_z) — 3-D ``gradm1``."""
@@ -144,10 +184,19 @@ class SEM3(SEMBase):
         )
 
     def divv(self, u: torch.Tensor) -> torch.Tensor:
-        gx, _, _ = self.grad(u[..., 0])
-        _, gy, _ = self.grad(u[..., 1])
-        _, _, gz = self.grad(u[..., 2])
-        return gx + gy + gz
+        """du/dx + dv/dy + dw/dz of a (nelem, n, n, n, 3) velocity: each
+        reference derivative of all three components at once, weighted by
+        the metric and summed over the components."""
+        g = self._metric
+        ur, us, ut = self.grad_ref(u)
+        return (g[..., 0] * ur + g[..., 1] * us + g[..., 2] * ut).sum(dim=-1)
+
+    def curl(self, u: torch.Tensor, v: torch.Tensor, w: torch.Tensor):
+        """(curl u) components — 3-D ``comp_vort3``."""
+        _, uy, uz = self.grad(u)
+        vx, _, vz = self.grad(v)
+        wx, wy, _ = self.grad(w)
+        return wy - vz, uz - wx, vx - uy
 
     # ------------------------------------------------------------------
     # weak-form elliptic operators (local, unassembled)
@@ -174,19 +223,62 @@ class SEM3(SEMBase):
         """Approximate elementwise inverse of (h1 K + h2 B) by tensor-product
         fast diagonalization on each element's box (ops/fdm.py).  Accepts
         trailing component axes: (nelem, n, n, n, ...)."""
-        S, lam = self.fdm_S, self.fdm_lam
-        a = self.fdm_len[:, 0][:, None, None, None]
-        b = self.fdm_len[:, 1][:, None, None, None]
-        c = self.fdm_len[:, 2][:, None, None, None]
-        denom = h1 * (
-            (b * c / a) * lam[:, None, None] + (a * c / b) * lam[None, :, None]
-            + (a * b / c) * lam[None, None, :]
-        ) + h2 * (a * b * c)
-        ref = h1 * (b * c / a + a * c / b + a * b / c) * lam[1] + h2 * (a * b * c)
-        inv = torch.where(denom > 1e-8 * ref, 1.0 / denom.clamp_min(1e-300), 1.0 / ref)
-        inv = self._bc(inv, r)
-        t = torch.einsum("ia,jb,kc,eijk...->eabc...", S, S, S, r) * inv
-        return torch.einsum("ia,jb,kc,eabc...->eijk...", S, S, S, t)
+        S = self.fdm_S
+        St = S.transpose(0, 1)
+        return tensor3(S, S, S, tensor3(St, St, St, r) * self._bc(self.fdm_inverse(h1, h2), r))
+
+    def fdm_inverse(self, h1, h2) -> torch.Tensor:
+        """(nelem, n, n, n) inverse eigen-denominators of the FDM box
+        operator, kept for the last few (h1, h2); the Neumann constant mode
+        takes the lowest genuine mode's scale below 1e-8 of it (see SEM)."""
+        key = (float(h1), float(h2))
+        if key not in self._fdm_inv:
+            if len(self._fdm_inv) >= 8:  # a time step that varies (UPO Newton)
+                self._fdm_inv.pop(next(iter(self._fdm_inv)))
+            lam = self.fdm_lam
+            a = self.fdm_len[:, 0][:, None, None, None]
+            b = self.fdm_len[:, 1][:, None, None, None]
+            c = self.fdm_len[:, 2][:, None, None, None]
+            denom = h1 * (
+                (b * c / a) * lam[:, None, None] + (a * c / b) * lam[None, :, None]
+                + (a * b / c) * lam[None, None, :]
+            ) + h2 * (a * b * c)
+            ref = h1 * (b * c / a + a * c / b + a * b / c) * lam[1] + h2 * (a * b * c)
+            self._fdm_inv[key] = torch.where(denom > 1e-8 * ref,
+                                             1.0 / denom.clamp_min(1e-300), 1.0 / ref)
+        return self._fdm_inv[key]
+
+    # ------------------------------------------------------------------
+    # PnPn-2 pressure space (the 2-D SEM's, on hexahedra)
+    # ------------------------------------------------------------------
+    def div_to_p(self, u: torch.Tensor) -> torch.Tensor:
+        """Weak divergence into the P_{N-2} Gauss pressure space (the PnPn-2
+        D operator), integrated on the velocity GLL grid."""
+        Jt = self.Jpg.transpose(0, 1)
+        return tensor3(Jt, Jt, Jt, self.bm * self.divv(u))
+
+    def p_to_gll(self, p: torch.Tensor) -> torch.Tensor:
+        """Interpolate a Gauss pressure field to the velocity GLL nodes
+        (for output and post-processing only)."""
+        return tensor3(self.Jpg, self.Jpg, self.Jpg, p)
+
+    def grad_from_p(self, q: torch.Tensor) -> torch.Tensor:
+        """The exact transpose of :meth:`div_to_p` (the weak pressure
+        gradient D^T), (nelem, npr, npr, npr) -> (nelem, n, n, n, 3)."""
+        zb = (self.bm * self.p_to_gll(q))[..., None]
+        g = self._metric
+        Dt = self.D.transpose(0, 1)
+        return (along(Dt, g[..., 0] * zb, 1) + along(Dt, g[..., 1] * zb, 2)
+                + along(Dt, g[..., 2] * zb, 3))
+
+    def lift_p(self, r: torch.Tensor) -> torch.Tensor:
+        """Transpose-interpolation R^T of a Gauss field to the GLL grid."""
+        Jt = self.Jp.transpose(0, 1)
+        return tensor3(Jt, Jt, Jt, r)
+
+    def restrict_p(self, z: torch.Tensor) -> torch.Tensor:
+        """R z: GLL field back to the Gauss points (transpose of lift_p)."""
+        return tensor3(self.Jp, self.Jp, self.Jp, z)
 
     def coarse_apply_pressure(self, r: torch.Tensor) -> torch.Tensor:
         """Q1 vertex coarse-grid correction; the vertex sums gather over the
@@ -202,7 +294,7 @@ class SEM3(SEMBase):
     # ------------------------------------------------------------------
     def _to_fine(self, a: torch.Tensor) -> torch.Tensor:
         J = self.Jd
-        return torch.einsum("ai,bj,ck,eijk->eabc", J, J, J, a)
+        return tensor3(J, J, J, a)
 
     def convect(self, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Dealiased weak convection  integral phi (c . grad u) with the
@@ -214,44 +306,25 @@ class SEM3(SEMBase):
             + self._to_fine(c[..., 2]) * self._to_fine(uz)
         )
         W = self.wf3 * self.jac_d * F
-        J = self.Jd
-        return torch.einsum("ai,bj,ck,eabc->eijk", J, J, J, W)
+        Jt = self.Jd.transpose(0, 1)
+        return tensor3(Jt, Jt, Jt, W)
+
+    def convect_colloc(self, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Collocated (aliased) weak convection: B * (c . grad u)
+        (``SolverConfig(dealias=False)``)."""
+        ux, uy, uz = self.grad(u)
+        return self.bm * (c[..., 0] * ux + c[..., 1] * uy + c[..., 2] * uz)
+
+    convect_colloc_v = convect_colloc
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # CFL (reference utils.f90 compute_cfl; used for dt selection)
     # ------------------------------------------------------------------
-    @property
-    def p_shape(self):
-        raise NotImplementedError(f"the P_(N-2) pressure space {_PNPN2}")
-
-    def div_to_p(self, u):
-        raise NotImplementedError(f"div_to_p {_PNPN2}")
-
-    def p_to_gll(self, p):
-        raise NotImplementedError(f"p_to_gll {_PNPN2}")
-
-    def pressure_precond_pnpn2(self, r):
-        raise NotImplementedError(f"pressure_precond_pnpn2 {_PNPN2}")
-
-    def setup_pressure_blocks(self):
-        raise NotImplementedError(f"the 'block' pressure preconditioner {_PNPN2}")
-
-    def pressure_precond_block(self, r):
-        raise NotImplementedError(f"the 'block' pressure preconditioner {_PNPN2}")
-
-    def setup_pressure_schwarz(self, adjacency: str = "face"):
-        raise NotImplementedError(f"the 'schwarz' pressure preconditioner {_PNPN2}")
-
-    def pressure_precond_schwarz(self, r):
-        raise NotImplementedError(f"the 'schwarz' pressure preconditioner {_PNPN2}")
-
-    def curl(self, u, v, w):
-        raise NotImplementedError("SEM3.curl is not ported yet (ROADMAP item 15)")
-
-    def cfl(self, u, dt):
-        raise NotImplementedError("SEM3.cfl is not ported yet (ROADMAP item 15)")
-
-    def convect_colloc(self, c, u):
-        raise NotImplementedError(
-            "SEM3.convect_colloc (dealias=False) is not ported yet (ROADMAP item 15)"
-        )
+    def cfl(self, u: torch.Tensor, dt: float) -> torch.Tensor:
+        """Convective CFL number max |u.grad(xi)| dt / dxi_min of a
+        (nelem, n, n, n, 3) velocity."""
+        dz = float(np.min(np.diff(gll_points_weights(self.n)[0])))
+        ur = torch.abs(u[..., 0] * self.drdx + u[..., 1] * self.drdy + u[..., 2] * self.drdz)
+        us = torch.abs(u[..., 0] * self.dsdx + u[..., 1] * self.dsdy + u[..., 2] * self.dsdz)
+        ut = torch.abs(u[..., 0] * self.dtdx + u[..., 1] * self.dtdy + u[..., 2] * self.dtdz)
+        return self.glmax((ur + us + ut) * dt / dz)

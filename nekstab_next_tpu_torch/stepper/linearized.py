@@ -232,8 +232,7 @@ class LinearizedOperator:
             if self.ns.mixed is not None:
                 raise NotImplementedError(
                     "not ported: the adjoint of the legacy mixed-precision step "
-                    "(its refined solve is not differentiable; ROADMAP items 11 "
-                    "and 15)"
+                    "(its refined solve is not differentiable)"
                 )
             s = self.sem
             zero = self.steps.fields(torch.zeros(tuple(s.bm.shape) + (s.ndim,),

@@ -8,9 +8,9 @@ Scheme: BDFk/EXTk (k ramps 1->3) with incremental pressure correction:
 2. velocity Helmholtz solve  (g0/dt B + nu K) u* = rhs  with Dirichlet lift
    and a residual-correction warm start from u^n;
 3. pressure increment, one of two schemes (``SolverConfig.pressure_operator``):
-   ``'pnpn2'`` (2-D): E dp = -(g0/dt) D u* on the discontinuous P_{N-2}
-   Gauss space, E = D M^-1 D^T, then u <- u* + (dt/g0) M^-1 D^T dp
-   (discretely divergence-free);
+   ``'pnpn2'``: E dp = -(g0/dt) D u* on the discontinuous P_{N-2} Gauss
+   space, E = D M^-1 D^T, then u <- u* + (dt/g0) M^-1 D^T dp (discretely
+   divergence-free), the same code in 2-D and 3-D;
    ``'laplacian'``: K dp = -(g0/dt) B div(u*) on the velocity GLL grid
    (an approximate projection, safe on affine meshes), then
    u <- u* - (dt/g0) grad(dp), mass-averaged back onto the C0 space with
@@ -83,11 +83,6 @@ def _scheme(sem, solver: SolverConfig, legacy_mixed: bool) -> str:
     if solver.pressure_operator == "consistent":
         raise NotImplementedError(
             "not ported: SolverConfig.pressure_operator='consistent'")
-    if sem.ndim == 3 and solver.pressure_operator == "pnpn2":
-        raise NotImplementedError(
-            "not ported: the 3-D 'pnpn2' step (ROADMAP item 15); 3-D runs "
-            "pressure_operator='laplacian' or mixed_precision=True"
-        )
     if solver.fused_solves and (sem.ndim == 3 or solver.pressure_operator != "pnpn2"):
         raise NotImplementedError(
             "not ported: fused_solves outside the 2-D 'pnpn2' step"
@@ -104,7 +99,6 @@ def _check_supported(solver: SolverConfig, u_bc_fn, scalar_diff) -> None:
         "SolverConfig.pressure_direct": solver.pressure_direct,
         "SolverConfig.cg_fixed_iters": solver.cg_fixed_iters,
         "SolverConfig.finite_difference": solver.finite_difference,
-        "SolverConfig.dealias=False": not solver.dealias,
         "SolverConfig.fused_pressure=False": solver.fused_solves and not solver.fused_pressure,
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -179,6 +173,7 @@ class NavierStokes:
         self.u_bc = (1.0 - s.vmask) * u_bc
         self.forcing = forcing
         self.sponge_ref = sponge_ref
+        self._convect = s.convect if solver.dealias else s.convect_colloc_v
         # local stiffness diagonal, for the Jacobi preconditioners
         self._kdiag_local = None if solver.fdm_precond else s.stiffness_diag()
 
@@ -195,9 +190,6 @@ class NavierStokes:
         # velocity blocks for the final (BDF3) stage's h2 = (11/6)/dt; the
         # two ramp steps see a mildly mismatched but SPD preconditioner
         self._vblocks = None
-        if solver.velocity_precond == "block" and s.ndim == 3:
-            raise NotImplementedError(
-                "not ported: velocity_precond='block' in 3-D (ROADMAP item 15)")
         if solver.velocity_precond == "block" and not mixed_precision:
             self._vblocks = s.setup_velocity_blocks(self.nu, _BDF[3][0] / self.dt)
 
@@ -243,7 +235,7 @@ class NavierStokes:
     def _convect_all(self, c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Weak convection of every component of u by c."""
         s = self.sem
-        return torch.stack([s.convect(c, u[..., d]) for d in range(u.shape[-1])], dim=-1)
+        return torch.stack([self._convect(c, u[..., d]) for d in range(u.shape[-1])], dim=-1)
 
     def _explicit_weak(self, u: torch.Tensor, t: float, fc=None) -> torch.Tensor:
         """Weak explicit terms E = -C(u)u + B lam (u_ref - u) + B f(u,t) + B fc."""
@@ -412,9 +404,10 @@ class NavierStokes:
         rhs_p = -(g0 / dt) * s.div_to_p(ustar)
         if x0p is not None:
             rhs_p = rhs_p - E_op(x0p)
-        if self.solver.pressure_precond == "schwarz":
+        pp = self.solver.pressure_precond
+        if pp == "schwarz" and s.pschwarz is not None:
             precond_p = s.pressure_precond_schwarz
-        elif self.solver.pressure_precond == "block":
+        elif pp in ("block", "schwarz") and s.pblock_inv is not None:
             precond_p = s.pressure_precond_block
         else:
             precond_p = s.pressure_precond_pnpn2

@@ -233,5 +233,5 @@ def test_tangent_propagator_and_dt_override(small_case):
 def test_rmatvec_raises_on_the_mixed_stepper():
     case = CylinderCase(nr=2, ntheta=4, order=4, device="cpu", mixed_precision=True)
     op = LinearizedOperator(case.make_ns(), case.uniform_flow(), nsteps=2)
-    with pytest.raises(NotImplementedError, match="items 11 and 15"):
+    with pytest.raises(NotImplementedError, match="legacy mixed-precision step"):
         op.rmatvec(case.uniform_flow())

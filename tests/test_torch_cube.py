@@ -61,8 +61,8 @@ def test_cube_case_matches_jax(jcase):
     np.testing.assert_array_equal(case.u_bc.numpy(), np.asarray(jcase.u_bc))
     np.testing.assert_array_equal(case.initial_flow().numpy(),
                                   np.asarray(jcase.initial_flow()))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        case.make_ns()  # the f64 default 'pnpn2' is not ported in 3-D
+    ns0 = case.make_ns()  # the f64 default: the 3-D 'pnpn2' step
+    assert ns0._scheme == "pnpn2" and ns0.p_shape == case.sem.p_shape
     ns = CubeRoughnessCase(**CUBE, device="cpu", solver=SolverConfig(
         **EXAMPLE, pressure_operator="laplacian")).make_ns()
     assert ns.nu == pytest.approx(case.h / case.reynolds) and ns.mixed is None

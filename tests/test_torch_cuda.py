@@ -465,3 +465,19 @@ def test_schwarz_apply_on_the_card_matches_the_cpu(case):
     assert rel(got.cpu(), ref) < 1e-12
     assert torch.equal(got, sems[0].pressure_precond_schwarz(
         torch.as_tensor(r, device="cuda")))
+
+
+@pytest.mark.parametrize("precond", ["fdm", "schwarz"])
+def test_pnpn2_cube_matvec_on_the_card_matches_the_cpu(case, precond):
+    # the f64 3-D 'pnpn2' tangent (3 steps) on each device, solves at 1e-12
+    tight = SolverConfig(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=2000,
+                         velocity_maxiter=2000, pressure_precond=precond)
+    out = []
+    for dev in ("cuda", "cpu"):
+        cube = CubeRoughnessCase(**CUBE, device=dev, solver=tight)
+        q = cube.sem.vmask * torch.as_tensor(
+            np.random.default_rng(8).standard_normal(tuple(cube.sem.bm.shape) + (3,)),
+            device=dev)
+        op = LinearizedOperator(cube.make_ns(), cube.initial_flow(), nsteps=3)
+        out.append(op.matvec(q).cpu())
+    assert rel(out[0], out[1]) < 1e-10

@@ -82,6 +82,21 @@ def test_advance_matches_jax_f64(precond, warm, fdm):
         assert st.dp is None
 
 
+def test_advance_without_dealiasing_matches_jax_f64():
+    # dealias=False: the collocated convection (SEM.convect_colloc_v) in
+    # place of the 3/2-rule one, in both packages
+    cfg = JaxSolverConfig(**TIGHT, pressure_precond="block", dealias=False)
+    jcase = JaxCylinderCase(**MESH, solver=cfg)
+    jns = jcase.make_ns()
+    ns = port_stepper(jcase, jns, torch.float64)
+    u0 = np.array(jcase.uniform_flow())
+    jst = jax.jit(lambda s: jns.advance(s, 3))(jns.make_state(jnp.asarray(u0)))
+    st = ns.advance(ns.make_state(torch.as_tensor(u0)), 3)
+    assert rel(jst.u, st.u.numpy()) <= 1e-10
+    assert rel(jst.p, st.p.numpy()) <= 1e-10
+    assert ns._convect.__name__ == "convect_colloc_v"
+
+
 def test_advance_fused_plain_matches_jax_f32():
     # fused_solves: the port's plain kernel versions against the JAX Pallas
     # kernels in interpret mode, at test_fused_cg.py's stepper settings
@@ -129,7 +144,6 @@ UNSUPPORTED = {
     "pressure_direct": dict(cfg=dict(pressure_direct=True)),
     "cg_fixed_iters": dict(cfg=dict(cg_fixed_iters=True)),
     "finite_difference": dict(cfg=dict(finite_difference=True)),
-    "no_dealias": dict(cfg=dict(dealias=False)),
     "fused_pressure_off": dict(cfg=dict(fused_solves=True, fused_pressure=False)),
     "pressure_operator": dict(cfg=dict(pressure_operator="consistent")),
 }
