@@ -32,9 +32,10 @@ source, sm_90a, all at once) and drives:
    through K1 and K2 (the launches of its backward counted), against the
    plain versions and the f64 rmatvec; the saved modes' eigen-residuals
    under the f32 operator at the full horizon (540 steps); one Newton
-   iteration and direct and adjoint ``linear_stability_analysis`` (50
-   steps a matvec, k_dim 24, one restart) with the wavemaker and base-flow
-   sensitivity of their modes; then the rmatvec/matvec time ratio, the
+   iteration and the adjoint ``linear_stability_analysis`` (50 steps a
+   matvec, k_dim 24, one restart) with the wavemaker and base-flow
+   sensitivity of its mode and the saved direct mode; then the
+   rmatvec/matvec time ratio, the
    f64 step at the example's tolerances, ``ortho_insert`` at k = 24 and
    128, and the projected time of each preset's eigen stages;
 4. the fused-IR mixed-precision path (``--precision mixed`` of the
@@ -57,7 +58,7 @@ source, sm_90a, all at once) and drives:
    K1 and K2 against their plain versions on three steps' solves (each
    solve's iterations, flagged at its cap) and a 5-step matvec, the step
    time, and G(1.723) through K1/K2 (220 steps a matvec, k_dim 16, tol
-   1e-4) against the TPU's 6.304672 (within 5e-3); and three BoostConv
+   1e-4) against the TPU's 6.304672 (within 5e-3); and two BoostConv
    cycles in f64 from the march;
 6. periodic bases and forced response: on ``examples/cylinder_upo.py``'s
    192-element Re = 100 mesh with its f32 K1/K2 solver, the period map of
@@ -69,9 +70,8 @@ source, sm_90a, all at once) and drives:
    phase mode, the f64 Floquet adjoint identity and the f32 Floquet
    rmatvec against the plain versions (its backward's launches), and the
    example's projected time; on ``examples/cylinder_resolvent_sweep.py``'s
-   Re = 50 mesh, the
-   residual of ``resolvent_out/BF_cyl_00001.npz`` under the f64 plain
-   step, the forced tangent integration at omega = 0.78 against the plain
+   Re = 50 mesh about ``resolvent_out/BF_cyl_00001.npz``, the forced
+   tangent integration at omega = 0.78 against the plain
    versions (64 steps) and over a whole period (2,176 launches of each),
    its transpose identity in f64, and the projected time of an R(omega)
    apply and of an svds;
@@ -86,7 +86,20 @@ source, sm_90a, all at once) and drives:
    ``cube_out/``'s matvec counts, the ``'block'`` and ``'schwarz'`` set-up
    and pressure iterations on one step beside ``'fdm'``, and the 3-D rung:
    a 10-step ``'pnpn2'`` matvec on phase 2's 1,472-element cube beside its
-   ``'laplacian'`` one.
+   ``'laplacian'`` one;
+8. the thermal (Boussinesq) path: on the Rayleigh-Benard case (Ra 2000,
+   Pr 1, 4 x 2 elements at order 6, f64 plain) the coupled (u, T) adjoint
+   identity (5 steps, 1e-11) and ``linear_stability_analysis(base_T=...)``
+   at 40 steps a matvec (k_dim 8, one restart; sigma within 1.5 % of the
+   exact 11.0155, a stationary mode); on the rung (512 elements, eight
+   critical wavelengths, f32 ``fused_solves``: K1 with masks that differ
+   by component, K2 with the mean projection) K1/K2 against their plain
+   versions on one coupled step's solves, the launches and times of a
+   40-step coupled matvec and rmatvec, sigma within 1.5 % of 12.0372
+   (k_dim 16, one Krylov-Schur restart on the coupled basis); one
+   fused-IR coupled step against f64 (1e-7); an FST ``u_bc_fn`` step and
+   a ``'consistent'`` step on the card against the same on the CPU
+   (1e-12).
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every phase is fatal on failure and prints its
@@ -106,7 +119,10 @@ solve's kernel and plain times, iterations and bound, and the step time;
 and ``periodic``: launches on phase 6's run, max abs error against the
 plain versions there, the two 50-step orbit matvecs', the Floquet
 rmatvec backward's and the particular solution's launches, and the step,
-full-period matvec and primal times; K4 once per cube shape, with its
+full-period matvec and primal times; and ``thermal``: launches per coupled
+matvec, rmatvec and fused-IR step on the RB rung, max abs error against
+the plain versions there, the matvec and rmatvec times and dof-steps/s;
+K4 once per cube shape, with its
 ``shape``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
@@ -126,8 +142,7 @@ import time
 import numpy as np
 
 NSTEPS = 50
-REPS = 3
-PLAIN_REPS = 1  # the plain paths' matvecs take 3-20 s each: one timed call
+REPS = 3  # timed matvecs of a kernel path; a plain path's check is timed once
 # flagship: bench.py's f32 rung (bench.py:58-62,131-140)
 FLAGSHIP = dict(reynolds=60.0, nr=16, ntheta=48, order=6, outer_radius=40.0)
 CAPS_F32 = dict(pressure_tol=1e-5, velocity_tol=1e-6, pressure_maxiter=16,
@@ -163,8 +178,9 @@ CUBE_REPS = 2
 # the Krylov layer and the cylinder pipeline: the full preset of
 # examples/cylinder_stability.py on the flagship mesh (its artifacts in
 # cylinder_out_full/, its horizon 1.0), depth cut: 10-step f64 identity,
-# 50-step f32 matvecs for the stability API, one Newton iteration, one
-# Krylov-Schur restart
+# 50-step f32 matvecs for the stability API, one Newton iteration, the
+# adjoint analysis with one Krylov-Schur restart (the direct one, the same
+# eigs on the matvec, is not run: the smoke's time limit)
 ARTIFACTS = ("cylinder_out_full", "cylinder_out2")  # full and quick presets
 QUICK = dict(reynolds=60.0, nr=6, ntheta=16, order=6, outer_radius=20.0)
 HORIZON = 1.0
@@ -172,6 +188,7 @@ CAPS_12 = dict(pressure_tol=1e-12, velocity_tol=1e-12, pressure_maxiter=2000,
                velocity_maxiter=500, pressure_precond="block")
 EXAMPLE_F64 = dict(pressure_precond="block")  # 1e-8 / 1e-9, the example's f64 solver
 IDENTITY_STEPS = 10
+STEP_REPS = 5  # timed f64 steps a preset (~0.3 s each, host-bound)
 EIGS = dict(k_dim=24, nev=2, max_restarts=1)
 # the fused-IR mixed path: examples/cylinder_stability.py's --precision mixed
 MIXED = dict(pressure_tol=1e-8, velocity_tol=1e-9, pressure_maxiter=500,
@@ -190,7 +207,7 @@ BFS_ITERS = {"face": 55, "node": 50}  # 'schwarz' CG iterations to 1e-5, at most
 BFS_TIGHT = dict(pressure_tol=1e-10, velocity_tol=1e-10, pressure_maxiter=3000,
                  velocity_maxiter=1000)
 BFS_MATVEC_STEPS = 5
-BFS_BOOST = dict(skip=50, subspace=12, cycles=3)
+BFS_BOOST = dict(skip=50, subspace=12, cycles=2)
 # periodic bases and forced response: examples/cylinder_upo.py's Re = 100
 # orbit (192 elements, f32 K1/K2 at caps 24/12) at the TPU run's period in
 # 1,604 steps, and its DNS length; examples/cylinder_resolvent_sweep.py's
@@ -205,7 +222,6 @@ UPO_STEPS = 1604
 UPO_DNS_TIME = 160.0
 SWEEP_DIR = "resolvent_out"
 SWEEP_MESH = dict(reynolds=50.0, nr=8, ntheta=24, order=6, outer_radius=20.0, grading=8.0)
-SWEEP_BF = dict(pressure_tol=1e-8, velocity_tol=1e-9, pressure_precond="block")
 SWEEP_OMEGA = 0.78
 SWEEP_CUT = 64
 SWEEP_T_STEPS = 16
@@ -223,6 +239,27 @@ CUBE_G_T = 2.0
 CUBE_RESTART = 2.6738579526e-4
 # published H100 SXM peaks: device memory and float32 outside the tensor
 # cores
+# phase 8: the thermal (Boussinesq) path
+RB_SMALL = dict(rayleigh=2000.0, prandtl=1.0, nx=4, ny=2, order=6, dt=2.5e-3)
+RB_SIGMA = 11.0155  # growth_rate_freeslip(2000, 1, K_CRITICAL)
+RB_RUNG_SIGMA = 12.0372  # the rung's most unstable admissible k = 10 K_CRITICAL / 8
+RB_STEPS = 40  # steps a matvec (horizon 0.1 thermal times), as JAX's test
+RB_IDENTITY_STEPS = 5
+# k_dim 8 where JAX's test takes 24: a pass fills k_dim matvecs before its
+# convergence check, and 8 reach the test's tolerance after one restart in
+# 11 matvecs with the same sigma (10.99748421 on the CPU either way)
+RB_EIGS = dict(k_dim=8, nev=1, tol=1e-8, max_restarts=10)
+# the rung's sigma: k_dim 16 and one restart (the Schur condensation and
+# the Q Z rotation of the coupled (u, T) basis on the card)
+RB_RUNG_EIGS = dict(k_dim=16, nev=1, tol=1e-6, max_restarts=1)
+# the small case's f64 pressure solves: 11 'schwarz' CG iterations a solve
+# with node-overlap patches, where face patches take 17 and 'fdm' 50, on a
+# host-bound step (the JAX test's default 'fdm' took 228 s for the 960
+# steps of its Krylov-Schur run on the card)
+RB_PRECOND = dict(pressure_precond="schwarz", pressure_patch_overlap="node")
+RB_F32 = dict(fused_solves=True, pressure_tol=1e-5, velocity_tol=1e-6, scalar_tol=1e-6)
+RB_TIGHT = dict(pressure_tol=1e-12, velocity_tol=1e-12, scalar_tol=1e-12)
+
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
@@ -402,12 +439,14 @@ def kernel_ms(fn, reps: int, cold: bool = False) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     """Mean milliseconds of fn() over reps calls, by CUDA events, after one
-    warm-up call."""
+    warm-up call (``warm_up=False``: the caller's last call of the same
+    path, a check's, was the warm-up)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -417,6 +456,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_call(fn):
+    """(fn(), its milliseconds by CUDA events): one call, timed as it runs."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 @contextlib.contextmanager
@@ -698,28 +750,26 @@ def pipeline_phase(tag: str, dev) -> dict:
         f"residual {nres.history[0][1]:.4e} before, {res_after:.4e} after, "
         f"{nres.n_matvecs} matvecs")
     space = velocity_space(s32)
-    results = {}
-    for mode in ("direct", "adjoint"):
-        t0 = time.perf_counter()
-        r = linear_stability_analysis(ns32, base32, horizon=NSTEPS * dt, nsteps=NSTEPS,
-                                      mode=mode, **EIGS)
-        torch.cuda.synchronize()
-        audit = r.eigresult.orthonormality_audit(space)
-        results[mode] = r
-        log(f"pipeline: linear_stability_analysis {mode} (f32, {NSTEPS} steps, k_dim "
-            f"{EIGS['k_dim']}, {EIGS['max_restarts']} restart): lambda0 {r.lam[0]:.6f}, "
-            f"lambda1 {r.lam[1]:.6f}, residuals {r.residuals[0]:.2e} {r.residuals[1]:.2e}, "
-            f"{r.n_matvecs} matvecs in {time.perf_counter() - t0:.1f} s, orthonormality "
-            f"audit {audit:.2e} (bound 1e-5)")
-        if not (np.all(np.isfinite(r.lam[:2])) and audit <= 1e-5):
-            fail(f"stability analysis {mode}: lambda {r.lam[:2]}, audit {audit:.2e}")
-    wm32 = wave_maker(s32, *results["direct"].modes[0], *results["adjoint"].modes[0])
-    sens = bf_sensitivity(s32, *results["direct"].modes[0], *results["adjoint"].modes[0])
+    t0 = time.perf_counter()
+    r = linear_stability_analysis(ns32, base32, horizon=NSTEPS * dt, nsteps=NSTEPS,
+                                  mode="adjoint", **EIGS)
+    torch.cuda.synchronize()
+    audit = r.eigresult.orthonormality_audit(space)
+    log(f"pipeline: linear_stability_analysis adjoint (f32, {NSTEPS} steps, k_dim "
+        f"{EIGS['k_dim']}, {EIGS['max_restarts']} restart): lambda0 {r.lam[0]:.6f}, "
+        f"lambda1 {r.lam[1]:.6f}, residuals {r.residuals[0]:.2e} {r.residuals[1]:.2e}, "
+        f"{r.n_matvecs} matvecs in {time.perf_counter() - t0:.1f} s, orthonormality "
+        f"audit {audit:.2e} (bound 1e-5)")
+    if not (np.all(np.isfinite(r.lam[:2])) and audit <= 1e-5):
+        fail(f"stability analysis adjoint: lambda {r.lam[:2]}, audit {audit:.2e}")
+    wm32 = wave_maker(s32, f32["dRe"], f32["dIm"], *r.modes[0])
+    sens = bf_sensitivity(s32, f32["dRe"], f32["dIm"], *r.modes[0])
     torch.cuda.synchronize()
     path = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
     finite = bool(torch.isfinite(wm32).all()) and all(bool(torch.isfinite(v).all())
                                                       for v in sens.values())
-    log(f"pipeline: wave_maker and bf_sensitivity of the result: finite {finite}; "
+    log(f"pipeline: wave_maker and bf_sensitivity of the saved direct and the result's "
+        f"adjoint mode: finite {finite}; "
         f"kernel launches on the pipeline's run: {path}")
     if not finite:
         fail("wavemaker or base-flow sensitivity of the stability result is not finite")
@@ -752,7 +802,7 @@ def pipeline_phase(tag: str, dev) -> dict:
 
         def step():
             st["s"] = ns.step(st["s"])
-        steps[label] = (n, cuda_ms(step, 20))
+        steps[label] = (n, cuda_ms(step, STEP_REPS))
         log(f"timing {tag} pipeline: f64 step at the example's tolerances (1e-8/1e-9, 'block') "
             f"on the {label} preset's mesh ({c.mesh.nelem} elements, {n} steps a matvec): "
             f"{steps[label][1]:.2f} ms")
@@ -1381,20 +1431,11 @@ def periodic_phase(tag: str, dev) -> dict:
         f"{ms_primal:.0f}) ms = {upo['n_matvecs'] * (ms_matvec + ms_primal) / 6e4:.1f} min "
         f"(at most: one primal an iteration)")
 
-    # ---- S1. the sweep mesh's base flow under the f64 plain step ------------
-    rcase = CylinderCase(**SWEEP_MESH, device=dev, solver=SolverConfig(**SWEEP_BF))
+    # (the f64 residual of the saved sweep base flow over one time unit, 86 s
+    # on the card, is no longer run here; the sweep example's Newton reports
+    # its own base flow's residual)
     bf = load_field(os.path.join(root, SWEEP_DIR, "BF_cyl_00001.npz"))
     base64 = torch.as_tensor(bf.u, device=dev)
-    nbf = max(int(round(1.0 / rcase.dt)), 1)
-    t0 = time.perf_counter()
-    F = rcase.make_ns().propagator(base64, nbf) - base64
-    r_bf = float(_dotv(rcase.sem, F, F)) ** 0.5
-    log(f"periodic: {SWEEP_DIR}/BF_cyl_00001.npz ({rcase.sem.nelem} elements, Re "
-        f"{rcase.reynolds}) under the f64 plain step at 1e-8/1e-9: ||Phi_1(u) - u|| = "
-        f"{r_bf:.4e} over {nbf} steps (bound 1e-8; the TPU's Newton: "
-        f"{bf.meta['residual']:.3e}), {time.perf_counter() - t0:.1f} s")
-    if not (r_bf <= 1e-8):
-        fail(f"the sweep base flow's residual {r_bf:.4e}")
 
     # ---- S2. the forced integration at omega = 0.78 in f32 ------------------
     c32 = CylinderCase(**SWEEP_MESH, dtype=torch.float32, device=dev,
@@ -1622,6 +1663,256 @@ def cube3d_phase(tag: str, dev, cube: dict) -> dict:
             "rung_ms": ms}
 
 
+def rb_rung(dtype, solver: dict, dev):
+    """The rung: ``RayleighBenardCase(nx=64, ny=8, order=6,
+    wavenumber=K_CRITICAL/8)``, eight critical wavelengths wide."""
+    import torch
+    from nekstab_next_tpu_torch.cases.rayleigh_benard import K_CRITICAL, RayleighBenardCase
+    from nekstab_next_tpu_torch.config import SolverConfig
+
+    return RayleighBenardCase(**dict(RB_SMALL, nx=64, ny=8), wavenumber=K_CRITICAL / 8,
+                              solver=SolverConfig(**solver), dtype=dtype,
+                              device=torch.device(dev) if isinstance(dev, str) else dev)
+
+
+def rb_start(case, seed: int = 4):
+    """A perturbed conduction state with its hydrostatic pressure
+    Ra Pr (y - y^2/2) on the Gauss points (mean removed), as (u, p, T)
+    tensors: from p = 0 the first steps carry a pressure transient of
+    O(Ra Pr), beyond f32."""
+    import torch
+
+    s, m = case.sem, case.mesh
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=s.dtype, device=s.device)
+    u0 = s.vmask * f(0.2 * rng.standard_normal(tuple(case.base_u.shape)))
+    T0 = case.base_T + s.tmask[..., None] * f(0.05 * rng.standard_normal(
+        tuple(case.base_T.shape)))
+    ph = case.rayleigh * case.prandtl * (m.y - m.y ** 2 / 2)
+    return u0, s.p_from_gll(f(ph - ph.mean())), T0
+
+
+def coupled_rel(a, b) -> float:
+    """Relative distance of two (u, T) pairs over both blocks."""
+    import torch
+
+    a = torch.cat([x.double().reshape(-1) for x in a])
+    b = torch.cat([x.double().reshape(-1) for x in b])
+    return float((a - b).norm() / b.norm())
+
+
+def fst_step(device):
+    """Three f64 steps of a channel with the FST inflow lift
+    (``u_bc_fn``) on ``device``; the velocity on the CPU."""
+    import torch
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.mesh import box_mesh_2d
+    from nekstab_next_tpu_torch.ops.core import SEM
+    from nekstab_next_tpu_torch.stepper.fst import (
+        FSTInflow, isotropic_modes, von_karman_amplitudes)
+    from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
+
+    mesh = box_mesh_2d(8, 4, order=6, x1=3.0, y1=1.0)
+    sem = SEM(mesh, device=device)
+    yprof = np.linspace(0.0, 1.0, 64)
+    omega, beta, prof = isotropic_modes(4, 3, 1.0, 6.0, yprof, seed=3)
+    amps = np.repeat(von_karman_amplitudes(1.0, 6.0, 4, 3, tu=0.05, length=1.0), 3)
+    fst = FSTInflow.from_modes(mesh, omega, beta, yprof, prof, amps, device=device)
+    ns = NavierStokes(sem, viscosity=0.05, dt=0.004, u_bc_fn=fst,
+                      solver=SolverConfig(pressure_tol=1e-12, velocity_tol=1e-12))
+    u = np.zeros(mesh.x.shape + (2,))
+    u[..., 0] = 4.0 * mesh.y * (1.0 - mesh.y)
+    return ns.advance(ns.make_state(torch.as_tensor(u, device=device)), 3).u.cpu()
+
+
+def consistent_step(device):
+    """Three f64 steps of a channel (Dirichlet inflow, outflow) with the
+    ``'consistent'`` pressure scheme on ``device``; the velocity on the
+    CPU."""
+    import torch
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.mesh import box_mesh_2d
+    from nekstab_next_tpu_torch.mesh.mesh import BoundaryCondition as BC
+    from nekstab_next_tpu_torch.ops.core import SEM
+    from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
+
+    mesh = box_mesh_2d(8, 4, order=6, x1=3.0, y1=1.0,
+                       bc={"left": BC.DIRICHLET, "right": BC.OUTFLOW})
+    sem = SEM(mesh, device=device)
+    u_bc = np.zeros(mesh.x.shape + (2,))
+    u_bc[..., 0] = 4.0 * mesh.y * (1.0 - mesh.y)
+    u_bc = u_bc * (1.0 - mesh.vmask)
+    ns = NavierStokes(sem, viscosity=0.1, dt=0.01, u_bc=torch.as_tensor(u_bc, device=device),
+                      solver=SolverConfig(pressure_tol=1e-12, velocity_tol=1e-12,
+                                          pressure_operator="consistent"))
+    u0 = torch.as_tensor(mesh.vmask * 0.5 + u_bc, device=device)
+    return ns.advance(ns.make_state(u0), 3).u.cpu()
+
+
+def thermal_phase(tag: str, dev) -> dict:
+    """The thermal (Boussinesq) path: the coupled (u, T) step, tangent and
+    adjoint and ``linear_stability_analysis(base_T=...)`` on the
+    Rayleigh-Benard case (f64 plain: the adjoint identity and sigma against
+    the exact relation); on the 512-element rung in f32 through K1/K2 (the
+    first path whose K1 masks differ by component and whose stepping K2
+    removes the mean): K1/K2 against their plain versions on one coupled
+    step's solves, launches and times of a coupled matvec and rmatvec,
+    sigma; one fused-IR coupled step against f64; one FST ``u_bc_fn`` step
+    and one ``'consistent'`` step against the same steps on the CPU.  Fails
+    on any check."""
+    import torch
+    from nekstab_next_tpu_torch.algorithms.stability import linear_stability_analysis
+    from nekstab_next_tpu_torch.cases.rayleigh_benard import RayleighBenardCase
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+
+    out = {}
+    # ---- T1. the JAX test's case, f64 plain: identity and sigma ----------
+    t0 = time.perf_counter()
+    case = RayleighBenardCase(**RB_SMALL, solver=SolverConfig(
+        velocity_tol=1e-13, pressure_tol=1e-13, scalar_tol=1e-13, **RB_PRECOND), device=dev)
+    s = case.sem
+    op = LinearizedOperator(case.make_ns(), case.base_u, base_T=case.base_T,
+                            nsteps=RB_IDENTITY_STEPS)
+    rng = np.random.default_rng(7)
+    mk = lambda: (s.vmask * torch.as_tensor(rng.standard_normal(tuple(case.base_u.shape)),
+                                            device=dev),
+                  s.tmask[..., None] * torch.as_tensor(
+                      rng.standard_normal(tuple(case.base_T.shape)), device=dev))
+    q, w = mk(), mk()
+    Mq, Mw = op.matvec(q), op.rmatvec(w)
+    ip = lambda a, b: float(s.inner(a[0], b[0], masked=False) + s.inner(a[1], b[1], masked=False))
+    a1, a2 = ip(Mq, w), ip(q, Mw)
+    adj = abs(a1 - a2) / max(abs(a1), abs(a2))
+    log(f"thermal: RB Ra=2000 Pr=1 4x2 elements n={s.n} f64, {RB_IDENTITY_STEPS}-step coupled "
+        f"adjoint identity <Mq,w> {a1:.15e} vs <q,M*w> {a2:.15e}: rel {adj:.3e} (bound 1e-11)")
+    if not (adj <= 1e-11):
+        fail(f"the coupled adjoint identity: rel {adj:.3e}")
+    small = RayleighBenardCase(**RB_SMALL, solver=SolverConfig(**RB_PRECOND), device=dev)
+    res = linear_stability_analysis(small.make_ns(), small.base_u, horizon=RB_STEPS * small.dt,
+                                    nsteps=RB_STEPS, base_T=small.base_T, **RB_EIGS)
+    sig, im = float(np.real(res.lam[0])), float(np.imag(res.lam[0]))
+    r_sig = abs(sig / RB_SIGMA - 1.0)
+    log(f"thermal: RB sigma {sig:.6f} (Im {im:.2e}) vs exact {small.exact_growth_rate():.6f}: "
+        f"rel {r_sig:.3e} (bound 1.5e-2, |Im| < 1e-3), k_dim {RB_EIGS['k_dim']}, "
+        f"{len(res.eigresult.history) - 1} restart(s), {res.n_matvecs} matvecs of "
+        f"{RB_STEPS} steps, f64 plain with '{RB_PRECOND['pressure_precond']}' "
+        f"({RB_PRECOND['pressure_patch_overlap']} overlap), identity and "
+        f"sigma {time.perf_counter() - t0:.1f} s")
+    if not (r_sig < 0.015 and abs(im) < 1e-3):
+        fail(f"RB sigma {sig} (Im {im}) against {RB_SIGMA}")
+    out["sigma"] = sig
+
+    # ---- T2. the rung in f32 through K1/K2 --------------------------------
+    t0 = time.perf_counter()
+    rung = rb_rung(torch.float32, RB_F32, dev)
+    rs = rung.sem
+    ns = rung.make_ns()
+    fv, fp = ns.fused_v, ns.fused_p
+    nv = rung.mesh.npoints
+    vm = fv.mask
+    log(f"thermal rung: {rs.nelem} elements, n={rs.n}, {2 * nv} velocity dof + {nv} temperature "
+        f"dof, dt={rung.dt:g}, f32 fused_solves at {RB_F32['pressure_tol']:g}/"
+        f"{RB_F32['velocity_tol']:g}/{RB_F32['scalar_tol']:g}; K1 component masks min "
+        f"{float(vm[..., 0].min()):g}/{float(vm[..., 1].min()):g}, K2 project_mean "
+        f"{fp.project_mean}, set-up {time.perf_counter() - t0:.1f} s")
+    if not (fv is not None and fp.project_mean and float(vm[..., 0].min()) == 1.0
+            and float(vm[..., 1].min()) == 0.0):
+        fail("the rung does not put differing component masks on K1 and project_mean on K2")
+    u0, p0, T0 = rb_start(rung)
+    calls = []
+    with recording_solves(ns, calls):
+        st = ns.step(ns.make_state(u0, p=p0, T=T0))
+    torch.cuda.synchronize()
+    errs = {"fused_helmholtz_cg": 0.0, "fused_pressure_cg": 0.0}
+    rels = {"fused_helmholtz_cg": 0.0, "fused_pressure_cg": 0.0}
+    for name, rhs, args, iters in calls:
+        k = fv if name == "fused_helmholtz_cg" else fp
+        got, ref = k.solve(rhs, *args), k.plain(rhs, *args)
+        torch.cuda.synchronize()
+        rels[name] = max(rels[name], rel(got, ref))
+        errs[name] = max(errs[name], float((got - ref).abs().max()))
+    its = {n: [i for m, _, _, i in calls if m == n] for n in errs}
+    log(f"thermal rung: K1/K2 vs plain on one coupled step's solves: K1 rel "
+        f"{rels['fused_helmholtz_cg']:.3e} (bound 1e-5), K2 rel {rels['fused_pressure_cg']:.3e} "
+        f"(bound 1e-4), iterations {its}")
+    if not (rels["fused_helmholtz_cg"] < 1e-5 and rels["fused_pressure_cg"] < 1e-4
+            and all(its.values()) and bool(torch.isfinite(st.u).all())):
+        fail(f"K1/K2 on the rung's coupled step: rel {rels}, iterations {its}")
+    out["max_abs_err"] = errs
+
+    op = LinearizedOperator(ns, rung.base_u, base_T=rung.base_T, nsteps=RB_STEPS)
+    rng = np.random.default_rng(8)
+    f32 = lambda shape: torch.as_tensor(rng.standard_normal(tuple(shape)), dtype=torch.float32,
+                                        device=dev)
+    x = (rs.vmask * f32(rung.base_u.shape), rs.tmask[..., None] * f32(rung.base_T.shape))
+    # the counted calls are the timed ones (the rmatvec's first call builds
+    # its three per-stage vjps)
+    fv.launches = fp.launches = 0
+    y, ms_mv = cuda_call(lambda: op.matvec(x))
+    mv_launches = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+    op.rmatvec(y)
+    fv.launches = fp.launches = 0
+    z, ms_rmv = cuda_call(lambda: op.rmatvec(y))
+    rmv_launches = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches}
+    log(f"thermal rung: launches per {RB_STEPS}-step coupled matvec {mv_launches}, per rmatvec "
+        f"{rmv_launches}")
+    if not (mv_launches == {k: RB_STEPS for k in mv_launches}
+            and rmv_launches == {k: RB_STEPS for k in rmv_launches}
+            and all(bool(torch.isfinite(t).all()) for t in y + z)):
+        fail(f"the rung's coupled matvec/rmatvec: launches {mv_launches} / {rmv_launches}")
+    ms = {"matvec": ms_mv, "rmatvec": ms_rmv}
+    rate = 3 * nv * RB_STEPS / (ms["matvec"] / 1e3)
+    log(f"timing {tag} thermal rung coupled matvec ({RB_STEPS} steps, f32 K1/K2): "
+        f"{ms['matvec']:.2f} ms/matvec ({ms['matvec'] / RB_STEPS:.3f} ms a step, {rate:.4e} "
+        f"dof-steps/s over {3 * nv} velocity + scalar dof); rmatvec {ms['rmatvec']:.2f} ms "
+        f"(ratio {ms['rmatvec'] / ms['matvec']:.2f})")
+    out.update(matvec_launches=mv_launches, rmatvec_launches=rmv_launches, ms=ms,
+               dof_steps_per_s=rate)
+    t0 = time.perf_counter()
+    res = linear_stability_analysis(ns, rung.base_u, horizon=RB_STEPS * rung.dt,
+                                    nsteps=RB_STEPS, base_T=rung.base_T, **RB_RUNG_EIGS)
+    torch.cuda.synchronize()
+    sig = float(np.real(res.lam[0]))
+    r_sig = abs(sig / RB_RUNG_SIGMA - 1.0)
+    log(f"thermal rung: sigma {sig:.6f} (Im {float(np.imag(res.lam[0])):.2e}) vs "
+        f"{RB_RUNG_SIGMA} (k = 10 K_CRITICAL/8; k = 11 gives 11.9756): rel {r_sig:.3e} (bound "
+        f"1.5e-2), k_dim {RB_RUNG_EIGS['k_dim']}, {len(res.eigresult.history) - 1} restart(s), "
+        f"{res.n_matvecs} matvecs, residual {res.residuals[0]:.2e}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (r_sig < 0.015):
+        fail(f"the rung's sigma {sig} against {RB_RUNG_SIGMA}")
+    out["rung_sigma"] = sig
+
+    # ---- T3. one fused-IR coupled step on the rung against f64 -----------
+    ir = rb_rung(torch.float64, dict(fused_solves=True), dev)
+    nsi = ir.make_ns(mixed_precision=True)
+    u0, p0, T0 = rb_start(ir)
+    nsi.fused_v.launches = nsi.fused_p.launches = 0
+    st_ir = nsi.step(nsi.make_state(u0, p=p0, T=T0))
+    torch.cuda.synchronize()
+    ir_launches = {"fused_helmholtz_cg": nsi.fused_v.launches,
+                   "fused_pressure_cg": nsi.fused_p.launches}
+    ns64 = rb_rung(torch.float64, RB_TIGHT, dev).make_ns()
+    st64 = ns64.step(ns64.make_state(u0, p=p0, T=T0))
+    r_ir = coupled_rel((st_ir.u, st_ir.T), (st64.u, st64.T))
+    log(f"thermal rung: one fused-IR coupled step vs the f64 step at 1e-12: rel {r_ir:.3e} "
+        f"(bound 1e-7), launches {ir_launches} ({nsi._ir_cycles} refinement cycles)")
+    if not (nsi._mixed_ir and r_ir <= 1e-7 and min(ir_launches.values()) > 0):
+        fail(f"the fused-IR coupled step: rel {r_ir:.3e}, launches {ir_launches}")
+    out["ir_step_launches"] = ir_launches
+
+    # ---- T4. an FST step and a 'consistent' step, card against CPU --------
+    for name, fn in (("FST u_bc_fn", fst_step), ("'consistent'", consistent_step)):
+        gpu, cpu = fn(dev), fn("cpu")
+        r = float((gpu - cpu).abs().max() / cpu.abs().max())
+        log(f"thermal: 3 f64 steps with {name} on the card vs the CPU: rel {r:.3e} (bound 1e-12, "
+            f"the CPU tests' gate), finite {bool(torch.isfinite(gpu).all())}")
+        if not (bool(torch.isfinite(gpu).all()) and r <= 1e-12):
+            fail(f"the {name} step on the card: rel {r:.3e} from the CPU")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device -----------------------------------------------------
@@ -1686,8 +1977,9 @@ def main() -> None:
         fail("flagship matvec output is not finite")
     if launches != {"fused_helmholtz_cg": NSTEPS, "fused_pressure_cg": NSTEPS}:
         fail(f"expected {NSTEPS} launches of each kernel per matvec, got {launches}")
+    # (each plain path's one timed matvec is its check's own)
     with plain_solves(ns):
-        out_p = op.matvec(q)
+        out_p, ms_plain = cuda_call(lambda: op.matvec(q))
     r_plain = rel(out_k, out_p)
     log(f"matvec f32 kernels vs f32 plain versions: rel {r_plain:.3e} (bound 1e-3)")
     if not (r_plain < 1e-3):
@@ -1696,7 +1988,7 @@ def main() -> None:
     ns64 = case64.make_ns()
     op64 = LinearizedOperator(ns64, case64.uniform_flow(), nsteps=NSTEPS)
     q64 = case64.sem.vmask * case64.uniform_flow()
-    out_64 = op64.matvec(q64)
+    out_64, ms_64 = cuda_call(lambda: op64.matvec(q64))
     drift = rel(out_k, out_64)
     log(f"f32 drift: matvec f32 kernels vs f64 plain at tight tolerances (1e-10): rel {drift:.3e} (bound 1e-3)")
     if not (drift < 1e-3):
@@ -1722,13 +2014,12 @@ def main() -> None:
         return fn
 
     rates["f32 kernels"] = cuda_ms(chained(op, q), REPS)
-    with plain_solves(ns):
-        rates["f32 plain versions"] = cuda_ms(chained(op, q), PLAIN_REPS)
+    rates["f32 plain versions"] = ms_plain
     case64c = make_case(torch.float64, CAPS_F32, fused=False)
     op64c = LinearizedOperator(case64c.make_ns(), case64c.uniform_flow(), nsteps=NSTEPS)
-    rates["f64 plain, f32 caps 16/10"] = cuda_ms(
-        chained(op64c, case64c.sem.vmask * case64c.uniform_flow()), PLAIN_REPS)
-    rates["f64 plain, tight 1e-10"] = cuda_ms(chained(op64, q64), PLAIN_REPS)
+    rates["f64 plain, f32 caps 16/10"] = cuda_call(
+        lambda: op64c.matvec(case64c.sem.vmask * case64c.uniform_flow()))[1]
+    rates["f64 plain, tight 1e-10"] = ms_64
     for name, ms in rates.items():
         log(f"timing {tag} matvec {name}: {ms:.2f} ms/matvec, "
             f"{ndof * NSTEPS / (ms / 1e3):.4e} dof-steps/s")
@@ -1837,8 +2128,8 @@ def main() -> None:
         fail(f"K4 launched {k4m.launches} times for helmholtz32 calls {calls}")
     if launches3["fused_helmholtz_cg"] or launches3["fused_pressure_cg"]:
         fail(f"the cube path launched K1/K2: {launches3}")
-    with plain_k4(nsm):
-        out3_p = op3.matvec(q3)
+    with plain_k4(nsm):  # (the plain path's one timed matvec)
+        out3_p, ms3_plain = cuda_call(lambda: op3.matvec(q3))
     r3 = rel(out3, out3_p)
     log(f"cube matvec K4 vs K4's plain version: rel {r3:.3e} (bound 1e-7)")
     if not (r3 < 1e-7):
@@ -1862,9 +2153,9 @@ def main() -> None:
 
     # ---- 11. timing of the cube path and of K4 ---------------------------
     ndof3 = cube.mesh.npoints * 3
-    rates3 = {"mixed, K4 kernel": cuda_ms(chained(op3, q3), CUBE_REPS)}
-    with plain_k4(nsm):
-        rates3["mixed, K4 plain version"] = cuda_ms(chained(op3, q3), PLAIN_REPS)
+    # (the check's matvec was the K4 path's warm-up)
+    rates3 = {"mixed, K4 kernel": cuda_ms(chained(op3, out3), CUBE_REPS, warm_up=False),
+              "mixed, K4 plain version": ms3_plain}
     ns64e = NavierStokes(s3, viscosity=nu3, dt=cube.dt, u_bc=cube.u_bc,
                          solver=SolverConfig(**CUBE_TOL, pressure_operator="laplacian"))
     rates3["f64 'laplacian', example tolerances"] = cuda_ms(
@@ -1915,6 +2206,16 @@ def main() -> None:
         fail(f"the 3-D 'pnpn2' path launched a kernel: {stray}")
     t_phase = phase_wall("7 cube3d", t_phase)
 
+    # ==== the thermal path: RB on K1/K2, FST and 'consistent' steps =======
+    fv.launches = fp.launches = k4m.launches = 0
+    th = thermal_phase(tag, dev)
+    torch.cuda.synchronize()
+    stray = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches,
+             "fused_helmholtz": k4m.launches}
+    if any(stray.values()):
+        fail(f"the thermal phase launched the flagship's kernels: {stray}")
+    t_phase = phase_wall("8 thermal", t_phase)
+
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
          "launches": launches[name], "max_abs_err": err[name],
@@ -1934,7 +2235,12 @@ def main() -> None:
                       "max_abs_err": per["max_abs_err"][name],
                       "orbit_two_matvecs": per["orbit_matvec"][name],
                       "floquet_rmatvec_backward": per["rmatvec_launches"][name],
-                      "particular_solution": per["particular"][name], "ms": per["ms"]}}
+                      "particular_solution": per["particular"][name], "ms": per["ms"]},
+         "thermal": {"matvec_launches": th["matvec_launches"][name],
+                     "rmatvec_launches": th["rmatvec_launches"][name],
+                     "ir_step_launches": th["ir_step_launches"][name],
+                     "max_abs_err": th["max_abs_err"][name], "ms": th["ms"],
+                     "dof_steps_per_s": th["dof_steps_per_s"]}}
         for name in ("fused_helmholtz_cg", "fused_pressure_cg")
     ] + [
         # K4 once per cube shape: its launches on the cube matvec at that shape

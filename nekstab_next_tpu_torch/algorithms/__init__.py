@@ -10,6 +10,7 @@ from .resolvent import (
 from .stability import (
     StabilityResult,
     TransientGrowthResult,
+    coupled_space,
     gradient_energy_norm,
     linear_stability_analysis,
     transient_growth_analysis,
@@ -23,6 +24,7 @@ __all__ = [
     "transient_growth_analysis",
     "gradient_energy_norm",
     "velocity_space",
+    "coupled_space",
     "StabilityResult",
     "TransientGrowthResult",
     "sfd",

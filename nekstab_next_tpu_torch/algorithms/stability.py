@@ -1,7 +1,7 @@
 """Linear stability and transient growth (port of ``velocity_space``,
-``gradient_energy_norm``, ``StabilityResult``, ``linear_stability_analysis``,
-``TransientGrowthResult`` and ``transient_growth_analysis`` from
-``nekstab_next_tpu/algorithms/stability.py``).
+``coupled_space``, ``gradient_energy_norm``, ``StabilityResult``,
+``linear_stability_analysis``, ``TransientGrowthResult`` and
+``transient_growth_analysis`` from ``nekstab_next_tpu/algorithms/stability.py``).
 
 Krylov-Schur on the direct or adjoint exponential propagator, eigenvalues
 reported in the propagator plane (mu) and log-mapped to the NS plane
@@ -9,9 +9,11 @@ lambda = log(mu)/T; Golub-Kahan svds of the propagator for the optimal
 energy growth.  The inner product is the sponge-masked energy product
 <u, v>_{bm1s}.  ``floquet=True`` takes the propagator along the periodic
 orbit launched from the base (``FloquetOperator``: the monodromy when the
-horizon is the orbit's period).
-
-Not ported: coupled scalars (``base_T``), ROADMAP item 10; it raises."""
+horizon is the orbit's period).  With a thermal stepper (``ns.nscal > 0``)
+the Krylov vectors are coupled ``(velocity, scalars)`` pairs in the energy
+product over both (``coupled_space``), about ``(base_u, base_T)``.
+``SolverConfig.finite_difference`` selects the finite-difference
+propagator (direct only)."""
 
 from __future__ import annotations
 
@@ -24,7 +26,11 @@ import torch
 from ..krylov.krylov_schur import EigenResult, eigs
 from ..krylov.svd import svds
 from ..krylov.vector import VectorSpace
-from ..stepper.linearized import FloquetOperator, LinearizedOperator
+from ..stepper.linearized import (
+    FiniteDifferenceOperator,
+    FloquetOperator,
+    LinearizedOperator,
+)
 from ..stepper.navier_stokes import NavierStokes
 from ..utils.noise import make_seed, velocity_noise
 
@@ -37,6 +43,18 @@ def velocity_space(sem, masked: bool = True) -> VectorSpace:
             sem.inner(a[..., d], b[..., d], masked=masked)
             for d in range(a.shape[-1])
         )
+
+    return VectorSpace(dot)
+
+
+def coupled_space(sem, masked: bool = True) -> VectorSpace:
+    """Energy inner product over coupled (velocity, scalars) pairs: the
+    velocity's and the scalars' mass-weighted products summed."""
+
+    def dot(a, b):
+        au, aT = a
+        bu, bT = b
+        return sem.inner(au, bu, masked=masked) + sem.inner(aT, bT, masked=masked)
 
     return VectorSpace(dot)
 
@@ -57,7 +75,7 @@ class StabilityResult:
     mu: np.ndarray  # propagator-plane eigenvalues (complex)
     lam: np.ndarray  # NS-plane rates lambda = log(mu)/T
     residuals: np.ndarray
-    modes: List[Tuple[torch.Tensor, torch.Tensor]]  # (re, im) velocity fields
+    modes: List[Tuple]  # (re, im) velocity fields, or (u, T) pairs when coupled
     horizon: float
     n_matvecs: int
     eigresult: EigenResult
@@ -68,10 +86,13 @@ class StabilityResult:
         return complex(self.lam[i])
 
 
-def _make_operator(ns, base_u, base_p, nsteps, floquet):
+def _make_operator(ns, base_u, base_p, nsteps, floquet, base_T=None):
     if floquet:
-        return FloquetOperator(ns, base_u, base_p=base_p, nsteps=nsteps)
-    return LinearizedOperator(ns, base_u, base_p=base_p, nsteps=nsteps)
+        return FloquetOperator(ns, base_u, base_p=base_p, nsteps=nsteps, base_T=base_T)
+    if ns.solver.finite_difference:
+        # the finite-difference cross-check: direct matvec only
+        return FiniteDifferenceOperator(ns, base_u, nsteps=nsteps, order=ns.solver.fd_order)
+    return LinearizedOperator(ns, base_u, base_p=base_p, nsteps=nsteps, base_T=base_T)
 
 
 def linear_stability_analysis(
@@ -103,17 +124,25 @@ def linear_stability_analysis(
     ``mu`` when the horizon is its period).  As in the JAX package, the
     horizon is ``nsteps * ns.dt`` (``horizon`` is accepted for its
     signature).  ``seed_mode``: 'noise' | 'symmetric' | 'load' |
-    'baseflow'."""
-    if base_T is not None:
-        raise NotImplementedError("not ported: coupled scalars (ROADMAP item 10)")
+    'baseflow'.
+
+    With a thermal stepper (``ns.nscal > 0``) the Krylov vectors are
+    coupled ``(u, T)`` pairs about ``(base_u, base_T)`` and the modes come
+    back as pairs; the scalars always seed with noise (no spurious-mode
+    filter then).  ``checkpoint`` (an ``io.checkpoint.ArnoldiCheckpoint``)
+    and ``checkpoint_steps`` go to :func:`~..krylov.krylov_schur.eigs`."""
     if mode not in ("direct", "adjoint"):
         raise ValueError(f"mode must be 'direct' or 'adjoint', got {mode!r}")
-    op = _make_operator(ns, base_u, base_p, nsteps, floquet)
+    op = _make_operator(ns, base_u, base_p, nsteps, floquet, base_T=base_T)
+    coupled = ns.nscal > 0
     matvec = op.matvec if mode == "direct" else op.rmatvec
-    space = velocity_space(ns.sem)
+    space = coupled_space(ns.sem) if coupled else velocity_space(ns.sem)
     if x0 is None:
         x0 = make_seed(ns.sem, mode=seed_mode, seed=seed, path=seed_path,
                        base_u=base_u)
+        if coupled:
+            xT = velocity_noise(ns.sem, seed=seed + 1)[..., :1]
+            x0 = (x0, torch.cat([xT] * ns.nscal, dim=-1) * ns.sem.tmask[..., None])
     res = eigs(
         matvec, space, x0, k_dim=k_dim, nev=nev, tol=tol,
         schur_del=schur_del, max_restarts=max_restarts, checkpoint=checkpoint,
@@ -130,7 +159,7 @@ def linear_stability_analysis(
         re = space.scale(1.0 / nrm, re)
         im = space.scale(1.0 / nrm, im)
         modes.append((re, im))
-        if spurious_factor is not None:
+        if spurious_factor is not None and not coupled:
             gnorms.append(
                 np.hypot(gradient_energy_norm(ns.sem, re),
                          gradient_energy_norm(ns.sem, im))

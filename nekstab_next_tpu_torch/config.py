@@ -6,13 +6,14 @@ The port implements a subset of the options.  Where the JAX package quietly
 falls back to another path, the port raises where it reads an option it does
 not implement (``stepper/navier_stokes.py`` ``NavierStokes``):
 
-* ``lanes_layout``, ``cg_fixed_iters`` and ``fused_pressure=False`` are TPU
-  workarounds and are not ported;
-* ``pressure_operator='consistent'``, ``dealias=False`` and
-  ``finite_difference`` are not ported yet;
+* ``lanes_layout``, ``pressure_direct``, ``cg_fixed_iters`` and
+  ``fused_pressure=False`` are TPU workarounds and are not ported;
 * ``fused_solves`` needs float32 fields, or ``mixed_precision``, where the
   kernels are the f32 inner solves of ``mixed_ir_cycles`` refinement
-  cycles (the fused-IR path).
+  cycles (the fused-IR path), and runs on the 2-D ``'pnpn2'`` step only.
+
+``finite_difference`` (with ``fd_order``) is read by the stability
+analyses, which then take the finite-difference propagator (direct only).
 
 ``bdf_order`` and ``NewtonConfig.finite_difference`` are read nowhere, as in
 the JAX package: the stepper always ramps BDF1 -> BDF3 and Newton always
@@ -41,8 +42,8 @@ class SolverConfig:
     scalar_maxiter: int = 500
     dealias: bool = True  # 3/2 over-integration of convection
     fdm_precond: bool = True  # FDM element preconditioner; False -> Jacobi
-    pressure_operator: str = "pnpn2"  # 'pnpn2' | 'laplacian' ('consistent' not ported)
-    finite_difference: bool = False  # not ported
+    pressure_operator: str = "pnpn2"  # 'pnpn2' | 'consistent' | 'laplacian'
+    finite_difference: bool = False  # the analyses' finite-difference propagator
     fd_order: int = 2
     warm_start: bool = True  # residual-correction warm start of both solves
     pressure_precond: str = "fdm"  # 'fdm' | 'block' | 'schwarz' (ops/schwarz.py)

@@ -7,8 +7,11 @@ identical factors; :func:`sem_arrays` collects them from a JAX ``SEM``::
     sem = sem_from_arrays(sem_arrays(jax_sem), device="cuda")
 
 :func:`sem3_arrays` and :func:`sem3_from_arrays` do the same for a 3-D
-``SEM3``.  ``device`` defaults to the current CUDA device and raises without
-one: CPU callers pass ``device="cpu"``.
+``SEM3``.  :func:`thermal_case_arrays` collects a JAX thermal case (its
+SEM with the ``tmask`` the case overwrote, ``base_T`` and ``t_bc``) and
+:func:`thermal_case_from_arrays` puts them into the port's case built on
+the same mesh.  ``device`` defaults to the current CUDA device and raises
+without one: CPU callers pass ``device="cpu"``.
 
 This module imports no jax: ``np.asarray`` of a jax array needs none.
 """
@@ -82,3 +85,23 @@ def sem3_from_arrays(arrays: dict, device=None,
     :data:`SEM_META_KEYS`), the :data:`PRECOND_KEYS` as
     :func:`sem_from_arrays` installs them."""
     return _from_arrays(SEM3, arrays, FLOAT_KEYS3 + INT_KEYS3, device, dtype)
+
+
+def thermal_case_arrays(jax_case) -> dict:
+    """A JAX thermal case (``RayleighBenardCase``) as numpy: its SEM's
+    arrays (the ``tmask`` the case overwrote after building the SEM, not
+    the mesh's), ``base_T`` and ``t_bc``."""
+    return {"sem": sem_arrays(jax_case.sem), "base_T": np.asarray(jax_case.base_T),
+            "t_bc": np.asarray(jax_case.t_bc)}
+
+
+def thermal_case_from_arrays(case, arrays: dict):
+    """The port's thermal case ``case`` (built on the JAX case's mesh) with
+    the JAX case's SEM factors, ``base_T`` and ``t_bc`` from
+    :func:`thermal_case_arrays` in place of its own, in the case's dtype
+    and on its device; returns ``case``."""
+    s = case.sem
+    case.sem = sem_from_arrays(arrays["sem"], device=s.device, dtype=s.dtype)
+    case.base_T, case.t_bc = (torch.as_tensor(np.array(arrays[k]), dtype=s.dtype,
+                                              device=s.device) for k in ("base_T", "t_bc"))
+    return case

@@ -7,8 +7,12 @@ least nev + 4 vectors, conjugate pairs intact).  The host orchestrates the
 k_dim-sized dense work (scipy); the device does the matvec, the batched
 orthogonalization and the basis rotation Q Z (one tensordot).
 
-Not ported: the ``checkpoint``/``checkpoint_steps`` resume (ROADMAP item
-16); passing either raises."""
+``checkpoint`` (``io.checkpoint.ArnoldiCheckpoint``) persists the basis and
+the Hessenberg after every restart and resumes a fresh call from the last
+saved one; ``checkpoint_steps`` also persists every Arnoldi column as it
+is produced, so a run stopped mid-factorization resumes at its last
+matvec.  The files are the JAX package's: either package resumes the
+other's."""
 
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import dataclasses
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from .arnoldi import arnoldi_step
 from .dense import eig_sorted, schur_select
@@ -67,11 +73,13 @@ def eigs(
     ``x0`` is the seed vector (tensor or pytree).  Convergence: Ritz
     residual |beta e_k^T y_i| < tol for the ``nev`` leading pairs.
     ``max_restarts`` counts Schur condensations; the factorization and its
-    Ritz analysis always run at least once."""
-    if checkpoint is not None or checkpoint_steps:
-        raise NotImplementedError(
-            "not ported: eigs checkpoint/checkpoint_steps resume (ROADMAP item 16)"
-        )
+    Ritz analysis always run at least once.
+
+    ``checkpoint``: the (basis, H) pair persists after every restart and a
+    fresh call resumes from the last saved restart.  ``checkpoint_steps``:
+    every Arnoldi column and the Hessenberg persist as they are produced,
+    and a fresh call resumes at the last completed matvec (only a run that
+    opted into step checkpointing adopts step files)."""
     basis = Basis(space, x0, capacity=k_dim + 1)
     q0, _ = space.normalize(x0)
     basis.set(0, q0)
@@ -79,11 +87,43 @@ def eigs(
     m = 0  # number of columns kept from restarts
     nmv = 0
     history: List[dict] = []
+    host = lambda x: [leaf.detach().cpu().numpy() for leaf in tree_leaves(x)]
+
+    if checkpoint is not None:
+        saved = checkpoint.load()
+        if saved is not None:
+            leaves, Hs, m, _meta = saved
+            for B, leaf in zip(tree_leaves(basis.Q), leaves):
+                B.copy_(torch.as_tensor(leaf, dtype=B.dtype, device=B.device))
+            H[:] = Hs
+        # per-step columns extend past the last restart bundle (cleared at
+        # each restart, so whatever is on disk postdates it); stale step
+        # files of an earlier stepped run must not leak into a bundle-only
+        # resume
+        stepsave = checkpoint.load_columns() if checkpoint_steps else None
+        if stepsave is not None:
+            cols, Hc, ncols, _smeta = stepsave
+            if ncols > m and all(j in cols for j in range(m, ncols + 1)):
+                tleaves, spec = tree_flatten(basis.get(0))
+                for j, lv in cols.items():
+                    basis.set(j, tree_unflatten(
+                        [torch.as_tensor(leaf, dtype=t.dtype, device=t.device)
+                         for leaf, t in zip(lv, tleaves)], spec))
+                H[:] = Hc
+                m = ncols
+
+    def save_column(j: int, restart: int) -> None:
+        if checkpoint is not None and checkpoint_steps:
+            checkpoint.save_column(j, host(basis.get(j)), H, j, restart=restart,
+                                   n_matvecs=nmv)
+
+    save_column(m, 0)  # the seed (or the resumed head) column
 
     for restart in range(max_restarts + 1):
         for j in range(m, k_dim):
             beta = arnoldi_step(matvec, space, basis, H, j)
             nmv += 1
+            save_column(j + 1, restart)
             if callback is not None:
                 callback(restart, j, beta)
             if beta <= 1e-12:
@@ -124,5 +164,11 @@ def eigs(
         H[:] = 0.0
         H[:m, :m] = T[:m, :m]
         H[m, :m] = beta * Z[k_dim - 1, :m]
+
+        if checkpoint is not None:
+            checkpoint.save(host(basis.Q), H, m, restart=restart, n_matvecs=nmv)
+            # the rotation rewrote every column: step files are stale
+            checkpoint.clear_columns()
+            save_column(m, restart + 1)
 
     return EigenResult(vals, res, vecs, basis, H, k_dim, ncv, nmv, history)

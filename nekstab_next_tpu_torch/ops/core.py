@@ -433,6 +433,14 @@ class SEM(SEMBase):
     def divv(self, u: torch.Tensor) -> torch.Tensor:
         return self.div(u[..., 0], u[..., 1])
 
+    def divv_weak_t(self, q: torch.Tensor) -> torch.Tensor:
+        """The exact transpose of ``bm * divv`` (the weak pressure gradient
+        of the ``'consistent'`` scheme), (nelem, n, n) -> (nelem, n, n, 2)."""
+        zb = self.bm * q
+        u0 = self.grad_ref_t(self.rx * zb, self.sx * zb)
+        u1 = self.grad_ref_t(self.ry * zb, self.sy * zb)
+        return torch.stack([u0, u1], dim=-1)
+
     def curl(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """z-vorticity dv/dx - du/dy (``comp_vort3`` 2-D)."""
         _, uy = self.grad(u)

@@ -191,6 +191,15 @@ class SEM3(SEMBase):
         ur, us, ut = self.grad_ref(u)
         return (g[..., 0] * ur + g[..., 1] * us + g[..., 2] * ut).sum(dim=-1)
 
+    def divv_weak_t(self, q: torch.Tensor) -> torch.Tensor:
+        """The exact transpose of ``bm * divv`` (the weak pressure gradient
+        of the ``'consistent'`` scheme), (nelem, n, n, n) -> (nelem, n, n, n, 3)."""
+        zb = (self.bm * q)[..., None]
+        g = self._metric
+        Dt = self.D.transpose(0, 1)
+        return (along(Dt, g[..., 0] * zb, 1) + along(Dt, g[..., 1] * zb, 2)
+                + along(Dt, g[..., 2] * zb, 3))
+
     def curl(self, u: torch.Tensor, v: torch.Tensor, w: torch.Tensor):
         """(curl u) components — 3-D ``comp_vort3``."""
         _, uy, uz = self.grad(u)

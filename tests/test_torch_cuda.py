@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from nekstab_next_tpu_torch.cases.cube import CubeRoughnessCase
 from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
 from nekstab_next_tpu_torch.config import SolverConfig
@@ -481,3 +482,41 @@ def test_pnpn2_cube_matvec_on_the_card_matches_the_cpu(case, precond):
         op = LinearizedOperator(cube.make_ns(), cube.initial_flow(), nsteps=3)
         out.append(op.matvec(q).cpu())
     assert rel(out[0], out[1]) < 1e-10
+
+
+# ---- the thermal path (Rayleigh-Benard on K1/K2), FST and 'consistent' ----
+def test_coupled_rb_step_kernels_match_plain(case):
+    """The RB rung (512 elements, eight critical wavelengths) in f32: K1
+    with the free-slip walls' differing component masks and K2 with the
+    mean projection, three coupled steps through the kernels against the
+    same through their plain versions, and a 10-step coupled matvec's
+    launches (``chip_smoke.py``'s phase 8 rung and start)."""
+    rb = chip_smoke.rb_rung(torch.float32, chip_smoke.RB_F32, "cuda")
+    ns = rb.make_ns()
+    fv, fp = ns.fused_v, ns.fused_p
+    assert fp.project_mean and float(fv.mask[..., 1].min()) == 0.0
+    u0, p0, T0 = chip_smoke.rb_start(rb)
+    got = ns.advance(ns.make_state(u0, p=p0, T=T0), 3)
+    fv.solve, fp.solve = fv.plain, fp.plain
+    try:
+        ref = ns.advance(ns.make_state(u0, p=p0, T=T0), 3)
+    finally:
+        del fv.solve, fp.solve
+    assert rel(got.u, ref.u) < 1e-4 and rel(got.T, ref.T) < 1e-5
+    op = LinearizedOperator(ns, rb.base_u, base_T=rb.base_T, nsteps=10)
+    fv.launches = fp.launches = 0
+    Mq = op.matvec((rb.sem.vmask * u0, rb.sem.tmask[..., None] * (T0 - rb.base_T)))
+    torch.cuda.synchronize()
+    assert fv.launches == fp.launches == 10
+    assert all(bool(torch.isfinite(x).all()) for x in Mq)
+
+
+@pytest.mark.parametrize("path", ["fst", "consistent"])
+def test_fst_and_consistent_steps_on_the_card_match_the_cpu(case, path):
+    """Three f64 steps with the FST inflow lift or the 'consistent'
+    pressure scheme on the card against the same on the CPU (1e-12):
+    ``chip_smoke.py``'s phase 8 steps."""
+    run = chip_smoke.fst_step if path == "fst" else chip_smoke.consistent_step
+    gpu, cpu = run("cuda"), run("cpu")
+    assert bool(torch.isfinite(gpu).all())
+    assert float((gpu - cpu).abs().max() / cpu.abs().max()) <= 1e-12

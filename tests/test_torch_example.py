@@ -90,9 +90,11 @@ def test_example_mixed_precision_runs_to_the_end(tmp_path, monkeypatch, capsys):
 def test_pipeline_imports_no_jax():
     # in a fresh interpreter: this process has jax loaded (tests/conftest.py);
     # the pipeline's modules, the periodic-base and forced-response ones,
-    # this example, the UPO and resolvent-sweep examples and their tools
+    # the thermal path's and the remaining single-device ones, this example,
+    # the UPO, resolvent-sweep and Taylor-Green examples and their tools
     scripts = [SCRIPT] + [os.path.join(ROOT, p) for p in (
         "examples_torch/cylinder_upo.py", "examples_torch/cylinder_resolvent_sweep.py",
+        "examples_torch/taylor_green.py",
         "tools_torch/merge_resolvent_sweep.py", "tools_torch/upo_newton.py")]
     code = (
         "import sys, importlib.util\n"
@@ -103,7 +105,12 @@ def test_pipeline_imports_no_jax():
         "nekstab_next_tpu_torch.stepper.linearized, "
         "nekstab_next_tpu_torch.postproc.sensitivity, nekstab_next_tpu_torch.krylov, "
         "nekstab_next_tpu_torch.io, nekstab_next_tpu_torch.utils, "
-        "nekstab_next_tpu_torch.ops.exchange, nekstab_next_tpu_torch.ops.fused_cg\n"
+        "nekstab_next_tpu_torch.ops.exchange, nekstab_next_tpu_torch.ops.fused_cg, "
+        "nekstab_next_tpu_torch.cases.rayleigh_benard, nekstab_next_tpu_torch.stepper.fst, "
+        "nekstab_next_tpu_torch.stepper.state, nekstab_next_tpu_torch.io.checkpoint, "
+        "nekstab_next_tpu_torch.io.nek, nekstab_next_tpu_torch.postproc.vortex, "
+        "nekstab_next_tpu_torch.postproc.stats, nekstab_next_tpu_torch.postproc.budget, "
+        "nekstab_next_tpu_torch.utils.diagnostics, nekstab_next_tpu_torch.interop\n"
         f"for i, path in enumerate({scripts!r}):\n"
         "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -201,6 +201,11 @@ def test_f32_basis_stays_f32():
 
 
 def test_eigs_checkpoint_raises():
+    # the checkpoint resume is ported (tests/test_torch_checkpoint.py); a
+    # checkpoint that cannot load raises before any matvec
     A = torch.as_tensor(random_operator(3))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        eigs(lambda v: A @ v, space(), torch.ones(N), k_dim=4, checkpoint=object())
+    calls = []
+    with pytest.raises(AttributeError, match="load"):
+        eigs(lambda v: calls.append(1) or A @ v, space(), torch.ones(N), k_dim=4,
+             checkpoint=object())
+    assert not calls

@@ -173,7 +173,7 @@ def test_fused_ir_path_on_the_taylor_green_box():
 
 @pytest.mark.parametrize("dim,cfg,mixed,match", [
     (3, dict(fused_solves=True), False, "fused_solves"),  # 3-D PnPn-2 on the kernels
-    (2, dict(pressure_operator="consistent"), False, "consistent"),
+    (2, dict(pressure_operator="consistent", fused_solves=True), False, "consistent"),
     (3, dict(pressure_operator="laplacian", fused_solves=True), False, "fused_solves"),
 ])
 def test_unported_paths_raise(dim, cfg, mixed, match):

@@ -25,7 +25,6 @@ from nekstab_next_tpu_torch.ops.core import SEM
 from nekstab_next_tpu_torch.config import SolverConfig
 from nekstab_next_tpu_torch.postproc import wave_maker
 from nekstab_next_tpu_torch.stepper import NavierStokes
-from nekstab_next_tpu_torch.stepper.linearized import FloquetOperator
 
 MESH = dict(nr=4, ntheta=8, order=6)
 # 3 steps a matvec (cut for the test's time), one Krylov-Schur pass
@@ -111,11 +110,13 @@ def test_cavity_adjoint_spectrum_equals_direct():
 
 def test_unported_analyses_raise(results):
     # floquet=True is ported (tests/test_torch_orbit.py holds its
-    # operator); coupled scalars are not, in either entry's operator
+    # operator), and so are coupled scalars (tests/test_torch_rb_stability.py):
+    # what raises is an adjoint analysis on the finite-difference
+    # propagator, which has none (as in JAX), and an unknown mode
     _, sem, _ = results
-    with pytest.raises(NotImplementedError, match="item 10"):
-        linear_stability_analysis(None, None, 1.0, 1, base_T=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        linear_stability_analysis(None, None, 1.0, 1, floquet=True, base_T=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FloquetOperator(None, None, base_T=torch.zeros(1))
+    ns = NavierStokes(sem, viscosity=0.05, dt=0.08, solver=SolverConfig(finite_difference=True))
+    base = torch.zeros(tuple(sem.bm.shape) + (2,), dtype=sem.dtype)
+    with pytest.raises(NotImplementedError, match="no adjoint"):
+        linear_stability_analysis(ns, base, 1.0, 1, mode="adjoint", k_dim=4)
+    with pytest.raises(ValueError, match="mode"):
+        linear_stability_analysis(ns, base, 1.0, 1, mode="transpose")

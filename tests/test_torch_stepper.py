@@ -138,14 +138,20 @@ def test_propagator_is_advance():
 
 # every option the port does not implement raises where it is read
 UNSUPPORTED = {
-    "u_bc_fn": dict(kw=dict(u_bc_fn=lambda t: 0.0)),
-    "scalars": dict(kw=dict(scalar_diff=(0.01,))),
     "lanes_layout": dict(cfg=dict(lanes_layout=True)),
     "pressure_direct": dict(cfg=dict(pressure_direct=True)),
     "cg_fixed_iters": dict(cfg=dict(cg_fixed_iters=True)),
-    "finite_difference": dict(cfg=dict(finite_difference=True)),
     "fused_pressure_off": dict(cfg=dict(fused_solves=True, fused_pressure=False)),
-    "pressure_operator": dict(cfg=dict(pressure_operator="consistent")),
+    # 'consistent' is ported; its step on the fused kernels is not
+    "pressure_operator": dict(cfg=dict(pressure_operator="consistent", fused_solves=True)),
+}
+# once refused as not ported: the time-dependent lift (tests/test_torch_fst.py),
+# the scalars (tests/test_torch_scalars.py) and the finite-difference
+# propagator's flag (read by the analyses, not the stepper)
+ACCEPTED = {
+    "u_bc_fn": dict(kw=dict(u_bc_fn=lambda t: 0.0)),
+    "scalars": dict(kw=dict(scalar_diff=(0.01,))),
+    "finite_difference": dict(cfg=dict(finite_difference=True)),
 }
 
 
@@ -156,6 +162,18 @@ def test_unsupported_option_raises(name):
     with pytest.raises(NotImplementedError):
         NavierStokes(sem, viscosity=0.01, dt=0.01,
                      solver=SolverConfig(**spec.get("cfg", {})), **spec.get("kw", {}))
+
+
+@pytest.mark.parametrize("name", sorted(ACCEPTED))
+def test_once_refused_option_is_accepted(name):
+    spec = ACCEPTED[name]
+    sem = SEM(cylinder_mesh(nr=2, ntheta=4, order=4), device="cpu")
+    ns = NavierStokes(sem, viscosity=0.01, dt=0.01,
+                      solver=SolverConfig(**spec.get("cfg", {})), **spec.get("kw", {}))
+    st = ns.step(ns.make_state(torch.zeros(tuple(sem.bm.shape) + (2,), dtype=torch.float64),
+                               T=torch.zeros(ns.t_shape, dtype=torch.float64)
+                               if ns.nscal else None))
+    assert bool(torch.isfinite(st.u).all()) and (st.T is not None) == (name == "scalars")
 
 
 @pytest.mark.parametrize("cfg", [dict(pressure_precond="schwarz"),
