@@ -12,9 +12,11 @@ source, sm_90a, all at once) and drives:
    grid and a digest of each result; runs the flagship 50-step f32 tangent
    matvec (the quantity ``bench.py`` times: 768-element Re=60 cylinder,
    order 6, caps 16/10) through them, checks it against the plain versions
-   and an f64 reference, runs 20 nonlinear steps and times everything with
-   CUDA events, K1 and K2 also at tol 0 for maxiter 1, 4 and 16 (the
-   per-iteration time is the slope);
+   and an f64 reference, runs 20 nonlinear steps and one f32 'laplacian'
+   step with ``fused_solves`` (K1 for the velocity, the plain pressure
+   solve, as JAX builds them) against K1's plain version, and times
+   everything with CUDA events, K1 and K2 also at tol 0 for maxiter 1, 4
+   and 16 (the per-iteration time is the slope);
 2. the 3-D mixed-precision path: checks K4 (the fused local Helmholtz
    apply) against its plain version at the cylinder's shape and at both of
    the cube's (the three-component velocity apply and the one-component
@@ -72,7 +74,8 @@ source, sm_90a, all at once) and drives:
    example's projected time; on ``examples/cylinder_resolvent_sweep.py``'s
    Re = 50 mesh about ``resolvent_out/BF_cyl_00001.npz``, the forced
    tangent integration at omega = 0.78 against the plain
-   versions (64 steps) and over a whole period (2,176 launches of each),
+   versions (64 steps) and from rest over a quarter period (544 launches
+   of each: the loop of the particular solution, a period's 2,176 steps),
    its transpose identity in f64, and the projected time of an R(omega)
    apply and of an svds;
 7. the f64 3-D PnPn-2 step (no kernel: the JAX package's 3-D ``'pnpn2'``
@@ -84,8 +87,11 @@ source, sm_90a, all at once) and drives:
    the adjoint identity (the example's gate, 1e-6) and their times, the
    projected minutes of the march and of G(2.0) and G(6.0) from
    ``cube_out/``'s matvec counts, the ``'block'`` and ``'schwarz'`` set-up
-   and pressure iterations on one step beside ``'fdm'``, and the 3-D rung:
-   a 10-step ``'pnpn2'`` matvec on phase 2's 1,472-element cube beside its
+   and pressure iterations on one step beside ``'fdm'``, the legacy
+   mixed-precision rmatvec on the same case (3 steps; K4 inside each
+   refined solve's transpose, its backward's launches counted) against
+   K4's plain version with its adjoint identity, and the 3-D rung: a
+   10-step ``'pnpn2'`` matvec on phase 2's 1,472-element cube beside its
    ``'laplacian'`` one;
 8. the thermal (Boussinesq) path: on the Rayleigh-Benard case (Ra 2000,
    Pr 1, 4 x 2 elements at order 6, f64 plain) the coupled (u, T) adjoint
@@ -99,7 +105,13 @@ source, sm_90a, all at once) and drives:
    (k_dim 16, one Krylov-Schur restart on the coupled basis); one
    fused-IR coupled step against f64 (1e-7); an FST ``u_bc_fn`` step and
    a ``'consistent'`` step on the card against the same on the CPU
-   (1e-12).
+   (1e-12);
+9. sharding (``nekstab_next_tpu_torch/parallel``) on phase 1's f64
+   flagship case at 1e-10 (no kernel runs on a shard view): a NCCL group
+   of one rank (whose shard view makes no collective) runs one step, the
+   10-step matvec and its rmatvec (1e-12 from the single-device runs); a
+   gloo group of two spawned ranks on this one card (NCCL refuses two
+   ranks on a device) runs the same three (1e-10); the ms a step of each.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every phase is fatal on failure and prints its
@@ -118,12 +130,15 @@ mesh, iterations of each recorded solve, ``bdf3_solve``: one BDF3
 solve's kernel and plain times, iterations and bound, and the step time;
 and ``periodic``: launches on phase 6's run, max abs error against the
 plain versions there, the two 50-step orbit matvecs', the Floquet
-rmatvec backward's and the particular solution's launches, and the step,
-full-period matvec and primal times; and ``thermal``: launches per coupled
+rmatvec backward's and the quarter-period forced integration's launches
+(``quarter_period_forced``), and the step, full-period matvec and primal
+times (``forced_step``: a step of the quarter-period integration); and ``thermal``: launches per coupled
 matvec, rmatvec and fused-IR step on the RB rung, max abs error against
-the plain versions there, the matvec and rmatvec times and dof-steps/s;
+the plain versions there, the matvec and rmatvec times and dof-steps/s; K1's also ``laplacian_step``:
+the f32 'laplacian' step's launches, error and times;
 K4 once per cube shape, with its
-``shape``), the card's name and power limit, and last
+``shape`` and ``mixed_rmatvec``: the backward's launches, error, identity
+and times of phase 7's mixed rmatvec), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
 port's package beside this script.
@@ -259,6 +274,18 @@ RB_RUNG_EIGS = dict(k_dim=16, nev=1, tol=1e-6, max_restarts=1)
 RB_PRECOND = dict(pressure_precond="schwarz", pressure_patch_overlap="node")
 RB_F32 = dict(fused_solves=True, pressure_tol=1e-5, velocity_tol=1e-6, scalar_tol=1e-6)
 RB_TIGHT = dict(pressure_tol=1e-12, velocity_tol=1e-12, scalar_tol=1e-12)
+
+# F2: the f32 'laplacian' step with fused_solves (K1 for the velocity, the
+# plain pressure solve, as JAX builds them); solves to f32-reachable tolerances
+LAPLACIAN_F32 = dict(pressure_tol=1e-5, velocity_tol=1e-6, pressure_maxiter=400,
+                     velocity_maxiter=100, pressure_operator="laplacian", fused_solves=True)
+# F1: the legacy mixed-precision rmatvec on the cube example's case (K4 in
+# its backward), a few steps about cube_out/'s base flow
+F1_STEPS = 3
+# phase 9: the flagship f64 'pnpn2' step sharded over torch.distributed
+SHARD_STEPS = 10  # steps of the sharded matvec and rmatvec
+SHARD_RANKS = 2  # ranks of the gloo group on the one card
+SHARD_TIMEOUT = 600  # seconds the gloo ranks may take, start-up included
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -473,13 +500,16 @@ def cuda_call(fn):
 
 @contextlib.contextmanager
 def plain_solves(ns):
-    """Route the stepper's two solves through the kernels' plain versions."""
-    fv, fp = ns.fused_v, ns.fused_p
-    fv.solve, fp.solve = fv.plain, fp.plain
+    """Route the stepper's kernel solves (two, or K1's alone on a
+    'laplacian' or 'consistent' step) through the kernels' plain versions."""
+    kernels = [k for k in (ns.fused_v, ns.fused_p) if k is not None]
+    for k in kernels:
+        k.solve = k.plain
     try:
         yield
     finally:
-        del fv.solve, fp.solve
+        for k in kernels:
+            del k.solve
 
 
 @contextlib.contextmanager
@@ -1076,6 +1106,246 @@ def fused_ir_phase(tag: str, dev, pipe: dict) -> dict:
             "path": path, "iterations": iters, "solve": solve, "ms": ms}
 
 
+def laplacian_step(case) -> dict:
+    """F2: one 2-D f32 'laplacian' step with ``fused_solves`` on ``case``'s
+    SEM: K1 for the velocity and the plain pressure solve (where JAX builds
+    K1 alone), against the same step on K1's plain version; fails on
+    disagreement or a launch count other than one."""
+    import torch
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
+
+    ns = NavierStokes(case.sem, viscosity=1.0 / case.reynolds, dt=case.dt, u_bc=case.u_bc,
+                      sponge_ref=case.sponge_ref, solver=SolverConfig(**LAPLACIAN_F32))
+    if ns.fused_v is None or ns.fused_p is not None or ns._scheme != "laplacian":
+        fail(f"the f32 'laplacian' step built K1 {ns.fused_v is not None}, "
+             f"K2 {ns.fused_p is not None}: JAX builds K1 alone")
+    u0 = case.uniform_flow()
+    ns.fused_v.launches = 0
+    got = ns.step(ns.make_state(u0))  # (its first launch builds K1's constants)
+    launches = ns.fused_v.launches
+    ms = cuda_call(lambda: ns.step(ns.make_state(u0)))[1]
+    with plain_solves(ns):
+        ref, ms_plain = cuda_call(lambda: ns.step(ns.make_state(u0)))
+    r = rel(got.u, ref.u)
+    log(f"f32 'laplacian' step (fused_solves: K1 for the velocity, plain pressure): "
+        f"K1 launches {launches}, rel {r:.3e} against K1's plain version (bound 1e-4), "
+        f"{ms:.2f} ms (plain {ms_plain:.2f} ms), |u|max {float(got.u.abs().max()):.4f}")
+    if launches != 1 or not (r < 1e-4) or not bool(torch.isfinite(got.u).all()):
+        fail(f"the f32 'laplacian' step: {launches} K1 launches, rel {r:.3e}")
+    return {"launches": launches, "rel": r, "ms": ms, "plain_ms": ms_plain}
+
+
+def mixed_rmatvec(sem, nu: float, dt: float, u_bc, solver, base, x0, yv,
+                  nsteps: int) -> dict:
+    """F1: the legacy mixed-precision ``rmatvec`` (each refined solve's
+    transpose is itself, K4 inside) on ``sem`` about ``base``: the K4
+    launches of one call's backward (the second call: the first also builds
+    the per-stage vjps), agreement with the same call on K4's plain version
+    and with the first call, and the adjoint identity in the bms product;
+    fails on any check."""
+    import torch
+    from nekstab_next_tpu_torch.algorithms.stability import velocity_space
+    from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+    from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
+
+    ns = NavierStokes(sem, viscosity=nu, dt=dt, u_bc=u_bc, solver=solver,
+                      mixed_precision=True)
+    if ns.mixed is None or ns._scheme != "laplacian":
+        fail("the mixed stepper did not take the legacy (K4) path")
+    op = LinearizedOperator(ns, base, nsteps=nsteps)
+    k4 = ns.mixed.fused
+    first, ms_first = cuda_call(lambda: op.rmatvec(yv))
+    k4.launches = 0
+    got, ms = cuda_call(lambda: op.rmatvec(yv))
+    launches = k4.launches
+    with plain_k4(ns):
+        ref, ms_plain = cuda_call(lambda: op.rmatvec(yv))
+    space = velocity_space(sem)
+    a1, a2 = float(space.dot(op.matvec(x0), yv)), float(space.dot(x0, got))
+    adj = abs(a1 - a2) / abs(a1)
+    r, again = rel(got, ref), rel(got, first)
+    log(f"mixed rmatvec (legacy path, K4 inside each refined solve's transpose), "
+        f"{nsteps} steps on {sem.nelem} elements: K4 launches in its backward {launches}, "
+        f"rel {r:.3e} against K4's plain version (bound 1e-9), {again:.3e} against the "
+        f"first call, adjoint identity <Mq,w> {a1:.15e} vs <q,M*w> {a2:.15e}, rel "
+        f"{adj:.3e} (bound 1e-8); {ms:.1f} ms (plain {ms_plain:.1f} ms; the first call, "
+        f"which also builds the per-stage vjps, {ms_first:.1f} ms)")
+    if not (launches > 0 and r < 1e-9 and again < 1e-9 and adj < 1e-8
+            and bool(torch.isfinite(got).all())):
+        fail(f"the mixed rmatvec: {launches} K4 launches, rel {r:.3e}, identity {adj:.3e}")
+    return {"launches": launches, "rel": r, "adjoint_rel": adj, "ms": ms,
+            "plain_ms": ms_plain}
+
+
+def shard_inputs(case):
+    """The sharded phase's inputs on the whole mesh: the base flow (the
+    uniform flow), the matvec's input (the masked base, as phase 1's) and
+    the rmatvec's (seeded noise)."""
+    from nekstab_next_tpu_torch.utils.noise import velocity_noise
+
+    base = case.uniform_flow()
+    return base, case.sem.vmask * base, velocity_noise(case.sem, seed=5)
+
+
+def shard_context(case, dmesh):
+    """The flagship case's sharded stepper: its sponge, lift and solver."""
+    from nekstab_next_tpu_torch.parallel import ShardedContext
+
+    return ShardedContext(case.mesh, dmesh, viscosity=1.0 / case.reynolds, dt=case.dt,
+                          u_bc=case.u_bc, sponge_strength=case.sem.sponge.cpu().numpy(),
+                          sponge_ref=case.sponge_ref, solver=case.solver)
+
+
+def shard_run(ctx, case, nsteps: int) -> dict:
+    """On this rank: one step from the uniform flow, the ``nsteps`` matvec
+    and its rmatvec about the uniform flow; this rank's slices, and the
+    times of the step, the matvec and the rmatvec (ms, host clock around
+    synchronised work)."""
+    import torch
+    from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+
+    base, q, w = shard_inputs(case)
+    st = ctx.shard_state(ctx.make_host_state(base))
+    out, ms = {}, {}
+    dev = ctx.dmesh.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out["step"] = ctx.ns.step(st).u
+    sync()
+    ms["step"] = 1e3 * (time.perf_counter() - t0)
+    op = LinearizedOperator(ctx.ns, ctx.shard_field(base), nsteps=nsteps)
+    t0 = time.perf_counter()
+    out["matvec"] = op.matvec(ctx.shard_field(q))
+    sync()
+    ms["matvec"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["rmatvec"] = op.rmatvec(ctx.shard_field(w))
+    sync()
+    ms["rmatvec"] = 1e3 * (time.perf_counter() - t0)
+    return {"out": out, "ms": ms}
+
+
+def shard_rank(rank: int, world: int, init_method: str, outdir: str, device: str,
+               mesh: dict, nsteps: int) -> None:
+    """One rank of the gloo group on the one card (a spawned process):
+    builds the f64 cylinder case of ``mesh`` at ``CAPS_TIGHT`` (phase 1's
+    ``case64``) on ``device``, runs :func:`shard_run` and saves its slices
+    and times to ``outdir``."""
+    import torch
+    from nekstab_next_tpu_torch.cases.cylinder import CylinderCase
+    from nekstab_next_tpu_torch.config import SolverConfig
+    from nekstab_next_tpu_torch.parallel import make_device_mesh
+
+    dm = make_device_mesh(world, rank=rank, device=device, backend="gloo",
+                          init_method=init_method)
+    try:
+        case = CylinderCase(**mesh, dtype=torch.float64, device=dm.device,
+                            solver=SolverConfig(**CAPS_TIGHT))
+        res = shard_run(shard_context(case, dm), case, nsteps)
+        torch.save({k: v.cpu() for k, v in res["out"].items()} | {"ms": res["ms"]},
+                   os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dm.close()
+
+
+def sharded_phase(tag: str, dev, case, ns) -> dict:
+    """Phase 9: the flagship f64 'pnpn2' step (``case``, ``ns``: phase 1's,
+    at 1e-10) sharded over ``torch.distributed``: a NCCL group of one rank
+    on the card runs a step, the ``SHARD_STEPS`` matvec and its rmatvec
+    (rel 1e-12 from the single-device runs: a one-rank view makes no
+    collective); a gloo group of two ranks, both on this card (NCCL
+    refuses two ranks on one device), runs the same (rel 1e-10).  No
+    kernel runs on a shard view.  Fails on any check."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from nekstab_next_tpu_torch.parallel import make_device_mesh
+    from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
+
+    base, q, w = shard_inputs(case)
+    ref, ms_ref = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref["step"] = ns.step(ns.make_state(base)).u
+    torch.cuda.synchronize()
+    ms_ref["step"] = 1e3 * (time.perf_counter() - t0)
+    op = LinearizedOperator(ns, base, nsteps=SHARD_STEPS)
+    t0 = time.perf_counter()
+    ref["matvec"] = op.matvec(q)
+    torch.cuda.synchronize()
+    ms_ref["matvec"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref["rmatvec"] = op.rmatvec(w)
+    torch.cuda.synchronize()
+    ms_ref["rmatvec"] = 1e3 * (time.perf_counter() - t0)
+
+    def check(name, world, got, bound):
+        r = rel(got, ref[name])
+        log(f"sharded: {name} over {world}: rel {r:.3e} from the single-device {name} "
+            f"(bound {bound:g}), digest {digest(got)}")
+        if not (r < bound and bool(torch.isfinite(got).all())):
+            fail(f"the sharded {name} over {world}: rel {r:.3e} (bound {bound:g})")
+        return r
+
+    # ---- one rank: NCCL ----------------------------------------------------
+    t0 = time.perf_counter()
+    dm = make_device_mesh(1, device=dev)
+    try:
+        ctx = shard_context(case, dm)
+        if (dm.backend != "nccl" or ctx.ns.fused_v is not None or ctx.ns.mixed is not None
+                or not ctx.sem.sharded or ctx.sem.group is not None):
+            fail(f"the one-rank group runs {dm.backend}, kernels {ctx.ns.fused_v}, "
+                 f"collectives over {ctx.sem.group}")
+        one = shard_run(ctx, case, SHARD_STEPS)
+        errs = {f"nccl_1_{k}": check(k, "NCCL, 1 rank", ctx.gather_field(v), 1e-12)
+                for k, v in one["out"].items()}
+    finally:
+        dm.close()
+    t_one = time.perf_counter() - t0
+
+    # ---- two ranks on this card: gloo ---------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx_mp = mp.get_context("spawn")
+        init = "file://" + os.path.join(tmp, "store")
+        procs = [ctx_mp.Process(target=shard_rank,
+                                args=(r, SHARD_RANKS, init, tmp, str(dev), FLAGSHIP,
+                                      SHARD_STEPS))
+                 for r in range(SHARD_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(SHARD_TIMEOUT)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SHARD_RANKS:
+            fail(f"the gloo ranks on one card exited with {codes} (see their errors above)")
+        parts = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(SHARD_RANKS)]
+    two_ms = {k: max(p["ms"][k] for p in parts) for k in ("step", "matvec", "rmatvec")}
+    for k in ("step", "matvec", "rmatvec"):
+        got = torch.cat([p[k] for p in parts]).to(dev)
+        errs[f"gloo_{SHARD_RANKS}_{k}"] = check(k, f"gloo, {SHARD_RANKS} ranks on one card",
+                                                got, 1e-10)
+    t_two = time.perf_counter() - t0
+    for name, m in (("single device", ms_ref), ("NCCL, 1 rank", one["ms"]),
+                    (f"gloo, {SHARD_RANKS} ranks on one card", two_ms)):
+        log(f"timing {tag} sharded flagship f64 'pnpn2' ({case.sem.nelem} elements), {name}: "
+            f"{m['step']:.1f} ms a step (the first, BDF1), {m['matvec'] / SHARD_STEPS:.1f} ms a "
+            f"tangent step ({SHARD_STEPS}-step matvec {m['matvec']:.1f} ms, its rmatvec "
+            f"{m['rmatvec']:.1f} ms, the first, with the vjps' set-up)")
+    log(f"sharded: NCCL one rank {t_one:.1f} s, gloo {SHARD_RANKS} ranks {t_two:.1f} s wall "
+        f"(spawn, build and runs)")
+    return {"rel": errs, "ms": {"single": ms_ref, "nccl_1": one["ms"], "gloo_2": two_ms}}
+
+
 def load_example(path: str, name: str):
     """An example script of the repository as a module (its presets, case
     builders and stage functions)."""
@@ -1457,17 +1727,22 @@ def periodic_phase(tag: str, dev) -> dict:
         f"period) cut to {SWEEP_CUT} steps: kernels vs plain rel {r_f:.3e} (bound 1e-3)")
     if not (r_f <= 1e-3):
         fail(f"forced integration: kernels vs plain {r_f:.3e}")
+    # the forced integration from rest over the quarter period that
+    # R(omega)'s matvec integrates for its imaginary part: the particular
+    # solution's loop for a quarter of its steps (the full period took
+    # 32.7 s on the card)
+    nq = spp // 4
     t0 = time.perf_counter()
-    b_full = ro._apply((fr, fi))
+    b_q = ro._integrate(torch.zeros_like(fr), fr, fi, nq)
     torch.cuda.synchronize()
-    t_part = time.perf_counter() - t0
+    t_part = (time.perf_counter() - t0) * spp / nq  # projected to a period
     part = {"fused_helmholtz_cg": gv.launches, "fused_pressure_cg": gp.launches}
     take(n32)
-    log(f"periodic: full-period particular solution: launches {part} (expected {spp} each), "
-        f"{t_part:.2f} s ({1e3 * t_part / spp:.3f} ms a step), finite "
-        f"{bool(torch.isfinite(b_full).all())}")
-    if part != {k: spp for k in part} or not bool(torch.isfinite(b_full).all()):
-        fail(f"the particular solution launched {part}")
+    log(f"periodic: forced integration from rest over a quarter period: launches {part} "
+        f"(expected {nq} each), {t_part * nq / spp:.2f} s ({1e3 * t_part / spp:.3f} ms a "
+        f"step), finite {bool(torch.isfinite(b_q).all())}")
+    if part != {k: nq for k in part} or not bool(torch.isfinite(b_q).all()):
+        fail(f"the quarter-period forced integration launched {part}")
 
     # ---- S3. the transpose identity in f64, 16 steps, bm product ------------
     r64 = ResolventOperator(CylinderCase(**SWEEP_MESH, device=dev,
@@ -1488,12 +1763,13 @@ def periodic_phase(tag: str, dev) -> dict:
         fail(f"forced-integration transpose: rel {r_t:.3e}")
     apply_s = (2 * 20 + 2) * t_part
     log(f"projection {tag} periodic: one R(omega = {SWEEP_OMEGA}) apply at the sweep's GMRES "
-        f"(k_dim 20, 2 restarts) costs at most 42 period integrations = {apply_s:.0f} s; one "
+        f"(k_dim 20, 2 restarts) costs at most 42 period integrations = {apply_s:.0f} s "
+        f"(a period projected x4 from the quarter period's {t_part * nq / spp:.2f} s); one "
         f"svds at k_dim 8 (8 applies of R and 8 of R*) {16 * apply_s / 60:.0f} min")
     return {"launches": path, "max_abs_err": err, "orbit_matvec": launches,
-            "rmatvec_launches": rmatvec_launches, "particular": part,
+            "rmatvec_launches": rmatvec_launches, "quarter_period_forced": part,
             "ms": {"step": step_ms, "matvec": ms_matvec, "primal": ms_primal,
-                   "particular_step": 1e3 * t_part / spp}}
+                   "forced_step": 1e3 * t_part / spp}}
 
 
 @contextlib.contextmanager
@@ -1642,7 +1918,11 @@ def cube3d_phase(tag: str, dev, cube: dict) -> dict:
         if not (bool(torch.isfinite(u1).all()) and rel(u1, steps["fdm"]) < 1e-6):
             fail(f"the '{pp}' step: rel {rel(u1, steps['fdm']):.3e} from the 'fdm' step")
 
-    # ---- C5. the 3-D rung: 'pnpn2' beside 'laplacian' on the larger cube --
+    # ---- C5. the legacy mixed rmatvec (F1): K4 in its backward -----------
+    f1 = mixed_rmatvec(sem, case.h / case.reynolds, case.dt, case.u_bc, case.solver, base,
+                       x0, yv, F1_STEPS)
+
+    # ---- C6. the 3-D rung: 'pnpn2' beside 'laplacian' on the larger cube --
     s3 = cube["sem"]
     ns3 = NavierStokes(s3, viscosity=cube["nu"], dt=cube["dt"], u_bc=cube["u_bc"],
                        solver=SolverConfig(**CUBE_TOL))
@@ -1660,7 +1940,7 @@ def cube3d_phase(tag: str, dev, cube: dict) -> dict:
         f"n={s3.n}), f64 'laplacian' (phase 2) {cube['laplacian_ms']:.2f} ms/matvec")
     return {"march_step_ms": 1e3 * t_march / CUBE_MARCH, "matvec_ms": times["matvec"],
             "rmatvec_ms": times["rmatvec"], "adjoint_rel": adj, "residual": res,
-            "rung_ms": ms}
+            "rung_ms": ms, "f1": f1}
 
 
 def rb_rung(dtype, solver: dict, dev):
@@ -2000,6 +2280,7 @@ def main() -> None:
     if not (bool(torch.isfinite(st.u).all()) and bool(torch.isfinite(st.p).all())):
         fail("20 nonlinear steps gave non-finite fields")
     log(f"nonlinear: 20 steps of ns.advance from uniform_flow(): finite, |u|max {float(st.u.abs().max()):.4f}")
+    lap = laplacian_step(case)
 
     # ---- 6. timing (CUDA events; warm-up + REPS chained matvecs) --------
     ndof = case.mesh.npoints * 2
@@ -2196,14 +2477,14 @@ def main() -> None:
 
     # ==== the 3-D PnPn-2 step: the cube example's case (no kernel) =======
     fv.launches = fp.launches = k4m.launches = 0
-    cube3d_phase(tag, dev, {
+    c3 = cube3d_phase(tag, dev, {
         "sem": s3, "nu": nu3, "dt": cube.dt, "u_bc": cube.u_bc, "base": base3, "q": q3,
         "laplacian_ms": rates3["f64 'laplacian', example tolerances"]})
     torch.cuda.synchronize()
     stray = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches,
              "fused_helmholtz": k4m.launches}
     if any(stray.values()):
-        fail(f"the 3-D 'pnpn2' path launched a kernel: {stray}")
+        fail(f"the 3-D 'pnpn2' path (or F1's own stepper) launched phase 2's kernels: {stray}")
     t_phase = phase_wall("7 cube3d", t_phase)
 
     # ==== the thermal path: RB on K1/K2, FST and 'consistent' steps =======
@@ -2215,6 +2496,16 @@ def main() -> None:
     if any(stray.values()):
         fail(f"the thermal phase launched the flagship's kernels: {stray}")
     t_phase = phase_wall("8 thermal", t_phase)
+
+    # ==== sharding: the flagship f64 step over torch.distributed ==========
+    fv.launches = fp.launches = k4m.launches = 0
+    sharded_phase(tag, dev, case64, ns64)
+    torch.cuda.synchronize()
+    stray = {"fused_helmholtz_cg": fv.launches, "fused_pressure_cg": fp.launches,
+             "fused_helmholtz": k4m.launches}
+    if any(stray.values()):
+        fail(f"the sharded phase launched a kernel: {stray}")
+    t_phase = phase_wall("9 sharded", t_phase)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": TPU_KERNEL[name],
@@ -2235,12 +2526,14 @@ def main() -> None:
                       "max_abs_err": per["max_abs_err"][name],
                       "orbit_two_matvecs": per["orbit_matvec"][name],
                       "floquet_rmatvec_backward": per["rmatvec_launches"][name],
-                      "particular_solution": per["particular"][name], "ms": per["ms"]},
+                      "quarter_period_forced": per["quarter_period_forced"][name],
+                      "ms": per["ms"]},
          "thermal": {"matvec_launches": th["matvec_launches"][name],
                      "rmatvec_launches": th["rmatvec_launches"][name],
                      "ir_step_launches": th["ir_step_launches"][name],
                      "max_abs_err": th["max_abs_err"][name], "ms": th["ms"],
-                     "dof_steps_per_s": th["dof_steps_per_s"]}}
+                     "dof_steps_per_s": th["dof_steps_per_s"]},
+         **({"laplacian_step": lap} if name == "fused_helmholtz_cg" else {})}
         for name in ("fused_helmholtz_cg", "fused_pressure_cg")
     ] + [
         # K4 once per cube shape: its launches on the cube matvec at that shape
@@ -2248,7 +2541,7 @@ def main() -> None:
          "replaces": TPU_KERNEL["fused_helmholtz"], "launches": calls[label],
          "max_abs_err": err["fused_helmholtz"], "ms": k4_ms[label][0],
          "plain_ms": k4_ms[label][1], **k4_ms[label][2], "library_ms": None,
-         "back_to_back_ms": k4_ms[label][3]}
+         "back_to_back_ms": k4_ms[label][3], "mixed_rmatvec": c3["f1"]}
         for name, label in (("fused_helmholtz", "cube velocity"),
                             ("fused_helmholtz/pressure", "cube pressure"))
     ]

@@ -3,11 +3,12 @@
 The JAX package beside this one is the reference; this package mirrors its
 layout and names (``ops/core.py`` -> ``nekstab_next_tpu_torch/ops/core.py``
 ...), imports ``torch``, numpy and scipy, and never jax.  It covers the
-JAX package's single-device scope: the 2-D and 3-D Navier-Stokes steppers
-(with scalars), their tangent and adjoint propagators, the Krylov layer and
-the analyses built on them, with the TPU kernels as hand-written CUDA
-kernels (``ops/fused_cg.py``, ``ops/fused_helmholtz.py``, ``csrc/``);
-sharding is not ported.
+JAX package's scope: the 2-D and 3-D Navier-Stokes steppers (with
+scalars), their tangent and adjoint propagators, the Krylov layer and the
+analyses built on them, with the TPU kernels as hand-written CUDA kernels
+(``ops/fused_cg.py``, ``ops/fused_helmholtz.py``, ``csrc/``), and their
+element-sharded runs over a ``torch.distributed`` process group
+(``parallel/``, the counterpart of JAX's ``shard_map``).
 
 Defaults (mirroring ``nekstab_next_tpu/__init__.py``):
 

@@ -36,27 +36,27 @@ from ..utils.noise import make_seed, velocity_noise
 
 
 def velocity_space(sem, masked: bool = True) -> VectorSpace:
-    """Energy inner product over velocity fields (the reference's k_dot)."""
+    """Energy inner product over velocity fields (the reference's k_dot):
+    ``sem.inner`` summed over the components; sharded on a shard view."""
+    w = sem.bms if masked else sem.bm
 
-    def dot(a, b):
-        return sum(
-            sem.inner(a[..., d], b[..., d], masked=masked)
-            for d in range(a.shape[-1])
-        )
+    def local(a, b):
+        return sum(torch.sum(a[..., d] * b[..., d] * w) for d in range(a.shape[-1]))
 
-    return VectorSpace(dot)
+    return VectorSpace(local, reduce=sem._reduce)
 
 
 def coupled_space(sem, masked: bool = True) -> VectorSpace:
     """Energy inner product over coupled (velocity, scalars) pairs: the
     velocity's and the scalars' mass-weighted products summed."""
+    w = (sem.bms if masked else sem.bm)[..., None]
 
-    def dot(a, b):
+    def local(a, b):
         au, aT = a
         bu, bT = b
-        return sem.inner(au, bu, masked=masked) + sem.inner(aT, bT, masked=masked)
+        return torch.sum(au * bu * w) + torch.sum(aT * bT * w)
 
-    return VectorSpace(dot)
+    return VectorSpace(local, reduce=sem._reduce)
 
 
 def gradient_energy_norm(sem, u) -> float:

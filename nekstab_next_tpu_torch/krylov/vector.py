@@ -6,10 +6,17 @@ the inner product is supplied by the operator (mass-weighted,
 sponge-masked).  A :class:`Basis` holds ``capacity`` vectors as one
 preallocated ``(capacity, *shape)`` tensor per leaf.  Its products are
 single batched calls: the dots of a vector against the active columns are
-``torch.func.vmap`` of ``space.dot`` over the leading axis (one reduction
-for all columns, not a Python loop), and the combinations ``sum_j y_j Q_j``
+``torch.func.vmap`` of ``space.local_dot`` over the leading axis, then
+one ``space.reduce`` of the batch (one reduction for all columns, not a
+Python loop), and the combinations ``sum_j y_j Q_j``
 and the Schur-restart rotation ``Q V`` are ``torch.tensordot``.
 Coefficients are cast to each leaf's dtype, so an f32 basis stays f32.
+
+A sharded space (a shard view's, ``parallel/sharded.py``) holds each rank's
+elements of every vector, so a :class:`Basis` over it is the sharded
+Krylov basis of ``nekstab_next_tpu/krylov/vector.py``.  Its ``reduce``
+is an all-reduce, so the basis all-reduces the batch of local dots once
+(JAX's "one fused psum"): a collective cannot run under ``vmap``.
 """
 
 from __future__ import annotations
@@ -22,16 +29,21 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 
 class VectorSpace:
-    """Bundles the weighted inner product and elementary vector algebra."""
+    """Bundles the weighted inner product and elementary vector algebra.
+    The inner product is ``reduce(local_dot(x, y))``: ``local_dot`` is
+    this rank's part of it and ``reduce`` the all-reduce that sums the
+    parts on a sharded space, the identity otherwise."""
 
-    def __init__(self, dot: Callable[[Any, Any], torch.Tensor]):
-        self._dot = dot
+    def __init__(self, dot: Callable[[Any, Any], torch.Tensor],
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        self.local_dot = dot
+        self.reduce = reduce if reduce is not None else (lambda s: s)
 
     def dot(self, x, y) -> torch.Tensor:
-        return self._dot(x, y)
+        return self.reduce(self.local_dot(x, y))
 
     def norm(self, x) -> torch.Tensor:
-        return torch.sqrt(self._dot(x, x))
+        return torch.sqrt(self.dot(x, x))
 
     def scale(self, a, x):
         return tree_map(lambda l: a * l, x)
@@ -75,11 +87,12 @@ class Basis:
 
     def _dots(self, w, ncols: int) -> torch.Tensor:
         """<q_j, w> for j < ncols, as one batched reduction (none for
-        ncols = 0: vmap cannot index into an empty batch)."""
+        ncols = 0: vmap cannot index into an empty batch): the batch of
+        local dots, then one ``reduce``."""
         if ncols == 0:
             return tree_leaves(self.Q)[0].new_zeros(0)
         cols = tree_map(lambda B: B[:ncols], self.Q)
-        return torch.func.vmap(lambda q: self.space.dot(q, w))(cols)
+        return self.space.reduce(torch.func.vmap(lambda q: self.space.local_dot(q, w))(cols))
 
     def _combine(self, y: torch.Tensor, ncols: int):
         """sum_{j < ncols} y_j q_j."""

@@ -9,9 +9,17 @@ Differences from the JAX ``SEM``:
 
 * ``SEM`` is an ``nn.Module``; every factor is a registered buffer on the
   device given at construction (the current CUDA device by default).
-  Single device, 2-D only; the 3-D ``SEM3`` is in ``ops/core3.py``, and
-  what both share (the pressure preconditioners, the reductions) in
+  2-D only; the 3-D ``SEM3`` is in ``ops/core3.py``, and what both share
+  (the pressure preconditioners, the reductions, the shard view) in
   :class:`SEMBase`.
+* Sharding: where JAX's SEM carries ``axis_name`` inside ``shard_map``,
+  the port's :meth:`SEMBase.shard_view` holds one rank's elements of a
+  ``torch.distributed`` process group (``parallel/sharded.py``).  On it
+  ``dssum`` sums the local copies onto the global-node vector in the
+  gather table's order, all-reduces that vector and gathers it back; the
+  reductions and the Q1 coarse right-hand side all-reduce too.  Without a
+  group of two or more ranks (``group is None``) every sum and dot is the
+  single-device one.
 * ``dssum`` is a gather over the node->copies table (:func:`gather_table`):
   each local node sums every copy of its global node in table order.  No
   scatter-add, whose CUDA atomics would make sums nondeterministic; copies
@@ -23,11 +31,13 @@ Differences from the JAX ``SEM``:
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import DEFAULT_DTYPE, resolve_device
@@ -55,6 +65,32 @@ def gather_table(gid_flat: np.ndarray, nglobal: int) -> np.ndarray:
         sel = counts > k
         tbl[sel, k] = order_idx[starts[sel] + k]
     return tbl
+
+
+def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (a new tensor), as an
+    autograd Function whose backward is the same all-reduce of the
+    cotangent: every rank's copy of the sum depends on every rank's ``x``.
+    A Function with ``setup_context`` passes through ``torch.func.vjp``
+    (the adjoint step's transpose), where
+    ``torch.distributed.nn.functional.all_reduce`` does not."""
+    return _AllSum.apply(x, group)
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllSum.forward(g, ctx.group), None
 
 
 class _DSSum(torch.autograd.Function):
@@ -85,6 +121,16 @@ FLOAT_KEYS = (
     "Jp", "Jpg", "bp", "fdm_S", "fdm_lam", "fdm_len", "pc_Jc", "pc_Acinv",
 )
 INT_KEYS = ("gid", "pc_cid")
+# the per-element factors a shard view slices (JAX's ``SEM._ELEM_FIELDS``);
+# the rest (D, w, the interpolation and FDM matrices, the coarse inverse)
+# every rank holds whole
+ELEM_KEYS = (
+    "rx", "ry", "sx", "sy", "jac", "bm", "bms", "sponge",
+    "g11", "g12", "g22", "vmask", "pmask", "tmask",
+    "binv_assembled", "inv_mult", "bp",
+    "jac_d", "rx_d", "ry_d", "sx_d", "sy_d",
+    "fdm_len", "pc_cid",
+)
 
 
 def stiffness2(D, g11, g12, g22, u: torch.Tensor) -> torch.Tensor:
@@ -157,20 +203,22 @@ class SEMBase(nn.Module):
     """What :class:`SEM` (2-D) and ``SEM3`` (3-D, ops/core3.py) share:
     construction from a mesh or from factor arrays onto one device, the
     gather tables, the direct-stiffness sums, the Helmholtz apply and the
-    mass-weighted reductions.  A subclass sets ``ndim``, ``float_keys`` (the
-    float factors it installs) and ``_factors`` (mesh -> factor arrays)."""
+    mass-weighted reductions and the shard view.  A subclass sets
+    ``ndim``, ``float_keys`` (the float factors it installs), ``elem_keys``
+    (those a shard view slices by element) and ``_factors`` (mesh -> factor
+    arrays).
+
+    ``sharded`` marks a shard view (:meth:`shard_view`); ``group`` is the
+    process group its sums and dots reduce over, None on one device and on
+    a view of a one-rank group; ``nshards`` the group's size,
+    ``elem_offset`` and ``nelem_total`` this rank's first element and the
+    mesh's element count."""
 
     ndim: int
     float_keys: Tuple[str, ...]
+    elem_keys: Tuple[str, ...]
 
-    def __init__(self, mesh, dtype: Optional[torch.dtype] = None,
-                 device=None, axis_name: Optional[str] = None):
-        name = type(self).__name__
-        if axis_name is not None:
-            raise NotImplementedError(
-                f"sharding ({name} axis_name) is not ported: the port's {name} "
-                "is single-device"
-            )
+    def __init__(self, mesh, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         self.mesh = mesh
         self._install(self._factors(mesh), dtype, device)
@@ -198,7 +246,8 @@ class SEMBase(nn.Module):
                 f"{type(self).__name__} takes {self.ndim}-D factors, got bm of "
                 f"shape {bm.shape}: 2-D factors build an SEM, 3-D an SEM3"
             )
-        self.nelem = int(bm.shape[0])
+        self.nelem = self.nelem_total = int(bm.shape[0])
+        self.sharded, self.group, self.nshards, self.elem_offset = False, None, 1, 0
         self.nglobal = int(a["nglobal"])
         self.has_pressure_dirichlet = bool(a["has_pressure_dirichlet"])
         self.pc_nc = int(np.asarray(a["pc_Acinv"]).shape[0])
@@ -244,6 +293,63 @@ class SEMBase(nn.Module):
                                 device=device))
         if a.get("p0Acinv") is not None:
             self.p0Acinv = torch.tensor(np.asarray(a["p0Acinv"]), dtype=dtype, device=device)
+        self._derived()
+
+    def _derived(self) -> None:
+        """Buffers derived from the per-element factors (a subclass's; run
+        again on a shard view's slices)."""
+
+    # ------------------------------------------------------------------
+    # sharding (nekstab_next_tpu/ops/core.py elem_arrays, shard_view)
+    # ------------------------------------------------------------------
+    def elem_arrays(self) -> dict:
+        """The per-element tensors (leading axis = element, the sharded
+        axis) by the JAX SEM's names: ``elem_keys``, ``gid`` as
+        (nelem, n, .., n), and ``pblock_inv`` when built."""
+        d = {k: getattr(self, k) for k in self.elem_keys}
+        d["gid"] = self.gid.reshape((self.nelem,) + (self.n,) * self.ndim)
+        if self.pblock_inv is not None:
+            d["pblock_inv"] = self.pblock_inv
+        return d
+
+    def shard_view(self, elem_arrays: dict, group) -> "SEMBase":
+        """A view of this SEM holding one rank's elements of a
+        ``torch.distributed`` process group: the per-element tensors
+        replaced by ``elem_arrays`` (this rank's contiguous block of
+        :meth:`elem_arrays`), the rest shared, and the sums and reductions
+        made collectives over ``group``.  Over a group of one rank the view
+        holds every element and makes no collective: its sums and dots are
+        the single-device ones, bit for bit and at their speed.
+
+        Host-built preconditioners that are not element-local do not pass
+        into the view: the ``'schwarz'`` patches and P0 coarse inverse
+        address the whole mesh, and the velocity blocks are built per
+        stepper; ``'schwarz'`` then falls back to the sharded ``'block'``
+        (``pblock_inv`` in ``elem_arrays``), as in JAX."""
+        v = copy.copy(self)
+        v._buffers = dict(self._buffers)
+        v.mesh = None
+        for k in self.elem_keys:
+            setattr(v, k, elem_arrays[k])
+        v.nelem = int(elem_arrays["gid"].shape[0])
+        v.gid = elem_arrays["gid"].reshape(-1)
+        v.gid_np, v.pc_cid_np = v.gid.cpu().numpy(), v.pc_cid.cpu().numpy()
+        v.sharded = True
+        v.nshards = dist.get_world_size(group)
+        v.group = group if v.nshards > 1 else None
+        v.elem_offset = dist.get_rank(group) * v.nelem
+        if v.group is not None:
+            # dssum: every global node's local copies in table order, summed
+            # here, then across the ranks, then gathered back by gid
+            v._gs_local = None
+            v._gs_part = torch.as_tensor(gather_table(v.gid_np, v.nglobal), device=v.device)
+            v._vtx_table = torch.as_tensor(
+                gather_table(v.pc_cid_np.reshape(-1), v.pc_nc), device=v.device)
+        v.pblock_inv = elem_arrays.get("pblock_inv")
+        v.pschwarz = v.p0Acinv = None
+        v.vblock_inv = {}
+        v._derived()
+        return v
 
     # ------------------------------------------------------------------
     # gather-scatter
@@ -259,7 +365,14 @@ class SEMBase(nn.Module):
     def _dssum(self, u: torch.Tensor) -> torch.Tensor:
         flat = u.reshape((self.gid.shape[0],) + tuple(u.shape[self.ndim + 1:]))
         ext = torch.cat([flat, flat.new_zeros((1,) + tuple(flat.shape[1:]))])
-        return ext[self._gs_local].sum(dim=1).reshape(u.shape)
+        if self.group is None:
+            return ext[self._gs_local].sum(dim=1).reshape(u.shape)
+        g = all_sum(ext[self._gs_part].sum(dim=1), self.group)
+        return g[self.gid].reshape(u.shape)
+
+    def _reduce(self, s: torch.Tensor) -> torch.Tensor:
+        """A rank's partial sum made the global one (itself on one device)."""
+        return s if self.group is None else all_sum(s, self.group)
 
     def _bc(self, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Broadcast a (nelem, n, .., n) weight against trailing component
@@ -355,29 +468,33 @@ class SEMBase(nn.Module):
         """Mass-weighted global inner product <u, v>_B (``masked`` uses the
         sponge-masked weight bm1s)."""
         w = self.bms if masked else self.bm
-        return torch.sum(u * v * self._bc(w, u))
+        return self._reduce(torch.sum(u * v * self._bc(w, u)))
 
     def norm(self, u: torch.Tensor, masked: bool = True) -> torch.Tensor:
         return torch.sqrt(self.inner(u, u, masked=masked))
 
     def glsum(self, u: torch.Tensor) -> torch.Tensor:
-        return torch.sum(u)
+        return self._reduce(torch.sum(u))
 
     def cgdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Multiplicity-weighted inner product (each global node counts
         once), under which the assembled elliptic operators are
         self-adjoint (Nek weights its solver dots by ``vmult``)."""
-        return torch.sum(a * b * self._bc(self.inv_mult, a))
+        return self._reduce(torch.sum(a * b * self._bc(self.inv_mult, a)))
 
     def glmax(self, u: torch.Tensor) -> torch.Tensor:
-        return torch.max(u)
+        m = torch.max(u)
+        if self.group is not None:
+            m = m.clone()
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        return m
 
     def volume(self) -> torch.Tensor:
         return self.glsum(self.bm)
 
     def mean(self, u: torch.Tensor) -> torch.Tensor:
         """Mass-weighted mean of a scalar field."""
-        return torch.sum(u * self.bm) / self.volume()
+        return self._reduce(torch.sum(u * self.bm)) / self.volume()
 
     # ------------------------------------------------------------------
     # sponge (reference core/forcing.f90:82-252)
@@ -398,11 +515,12 @@ class SEM(SEMBase):
     (float64 unless ``dtype`` is given) on ``device`` (the current CUDA
     device when None; raises without one, see :func:`resolve_device`);
     :meth:`from_arrays` builds them from precomputed numpy arrays
-    (``interop.sem_from_arrays``).  ``axis_name`` (the JAX SEM's sharded
-    element axis) raises: the port is single-device."""
+    (``interop.sem_from_arrays``); :meth:`shard_view` holds one rank's
+    elements of a process group (the JAX SEM's ``axis_name``)."""
 
     ndim = 2
     float_keys = FLOAT_KEYS
+    elem_keys = ELEM_KEYS
     _factors = staticmethod(sem_factors)
 
     # ------------------------------------------------------------------
@@ -527,7 +645,7 @@ class SEM(SEMBase):
         the vertex sums gather over the vertex table in table order."""
         rc_e = torch.einsum("cij,eij->ec", self.pc_Jc, r).reshape(-1)
         ext = torch.cat([rc_e, rc_e.new_zeros(1)])
-        rc = ext[self._vtx_table].sum(dim=1)
+        rc = self._reduce(ext[self._vtx_table].sum(dim=1))
         xc = self.pc_Acinv @ rc
         return torch.einsum("cij,ec->eij", self.pc_Jc, xc[self.pc_cid])
 

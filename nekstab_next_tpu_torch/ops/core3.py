@@ -9,7 +9,8 @@ as the 2-D :class:`~nekstab_next_tpu_torch.ops.core.SEM`, with which it
 shares :class:`~nekstab_next_tpu_torch.ops.core.SEMBase` (the pressure
 preconditioners and the reductions among it): an ``nn.Module`` whose
 factors are buffers on one device, ``dssum`` as a gather over the
-node->copies table (no atomics), the Q1 vertex sums the same way.
+node->copies table (no atomics), the Q1 vertex sums the same way, and a
+shard view of one rank's elements (``SEMBase.shard_view``).
 
 Every tensor-product contraction runs one node axis at a time
 (:func:`along`, :func:`tensor3`), each a batched matmul on a view of its
@@ -47,6 +48,12 @@ FLOAT_KEYS3 = (
     + ("Jp", "Jpg", "bp", "fdm_S", "fdm_lam", "fdm_len", "pc_Jc", "pc_Acinv")
 )
 INT_KEYS3 = ("gid", "pc_cid")
+# the per-element factors a shard view slices (JAX's ``SEM3._ELEM_FIELDS``)
+ELEM_KEYS3 = (
+    _METRICS + ("jac", "bm", "bms", "sponge", "g11", "g12", "g13", "g22", "g23", "g33",
+                "vmask", "pmask", "tmask", "binv_assembled", "inv_mult", "bp", "jac_d")
+    + tuple(k + "_d" for k in _METRICS) + ("fdm_len", "pc_cid")
+)
 
 
 def along(M: torch.Tensor, u: torch.Tensor, axis: int) -> torch.Tensor:
@@ -152,10 +159,10 @@ class SEM3(SEMBase):
 
     ndim = 3
     float_keys = FLOAT_KEYS3
+    elem_keys = ELEM_KEYS3
     _factors = staticmethod(sem3_factors)
 
-    def _install(self, a: dict, dtype, device) -> None:
-        super()._install(a, dtype, device)
+    def _derived(self) -> None:
         # the metric as one (nelem, n, n, n, 3, 3) buffer, [..., d, r] =
         # d xi_r / d x_d: the vector forms (divv, grad_from_p) take all three
         # components through each reference derivative at once
@@ -294,7 +301,7 @@ class SEM3(SEMBase):
         vertex table in table order."""
         rc_e = torch.einsum("cijk,eijk->ec", self.pc_Jc, r).reshape(-1)
         ext = torch.cat([rc_e, rc_e.new_zeros(1)])
-        rc = ext[self._vtx_table].sum(dim=1)
+        rc = self._reduce(ext[self._vtx_table].sum(dim=1))
         xc = self.pc_Acinv @ rc
         return torch.einsum("cijk,ec->eijk", self.pc_Jc, xc[self.pc_cid])
 

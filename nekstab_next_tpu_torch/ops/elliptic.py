@@ -62,7 +62,7 @@ def elliptic_solve(
         return P(local_op(Px)) + (x - Px)
 
     rhs = P(rhs_local)
-    dot = lambda a, b: torch.sum(a * b)
+    dot = lambda a, b: sem.glsum(a * b)
 
     def A_sub(x):
         return P(local_op(x))

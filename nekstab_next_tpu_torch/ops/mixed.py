@@ -11,11 +11,19 @@ assembled projected operator of ``ops/elliptic.py`` with the local Helmholtz
 apply replaced by :class:`~.fused_helmholtz.FusedHelmholtz` (a CUDA kernel
 on the card) and the FDM / Q1-coarse preconditioners in float32.
 
-The JAX package wraps the refined solve in ``lax.custom_linear_solve``, whose
-tangent re-runs the same solve on the tangent right-hand side; the port's
-tangent step (``stepper/linearized.py``) calls :func:`elliptic_solve_mixed`
-on the tangent right-hand side directly.  ``lax.scan`` over the cycles
-becomes a Python loop.
+The JAX package wraps the refined solve in
+``lax.custom_linear_solve(symmetric=True)``; the port runs it inside
+:class:`~.cg.SymmetricSolve`, so the transpose of the solve (the adjoint
+step's backward) is the same refined solve on the cotangent, K4 launches
+included, and the tangent step (``stepper/linearized.py``) calls
+:func:`elliptic_solve_mixed` on the tangent right-hand side directly.
+``lax.scan`` over the cycles becomes a Python loop.
+
+Not on a shard view (``parallel/sharded.py``): a sharded stepper with
+``mixed_precision=True`` raises, because the JAX reference cannot trace
+it either (``FusedHelmholtz.padfield`` converts the shard-local geometry
+to numpy inside ``shard_map``, ``nekstab_next_tpu/ops/pallas_kernels.py:153``),
+so there is nothing to hold a port to.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .cg import pcg
+from .cg import SymmetricSolve, pcg
 from .elliptic import make_projector
 from .fused_helmholtz import FusedHelmholtz
 
@@ -172,7 +180,9 @@ def elliptic_solve_mixed(
 ) -> torch.Tensor:
     """Mixed-precision twin of ``ops.elliptic.elliptic_solve`` for Helmholtz
     operators (local op = h1 K + h2 B): solves ``A x = P rhs_local`` with
-    ``A = P (h1 K + h2 B) P + (I - P)``, ``P = mask dsavg mask``."""
+    ``A = P (h1 K + h2 B) P + (I - P)``, ``P = mask dsavg mask``.
+    Differentiable in ``rhs_local``: the refined solve is symmetric, so its
+    transpose is itself (:class:`~.cg.SymmetricSolve`)."""
     P = make_projector(sem, mask)
 
     def helm64(u):
@@ -198,7 +208,12 @@ def elliptic_solve_mixed(
         def project(q):
             return q - (dot(q, ones) / csq) * ones
 
-        rhs = project(rhs)
-    x = mixed.ir_solve(mask, h1, h2, A, rhs, maxiter, coarse=coarse,
-                       project=project, cycles=cycles)
-    return x if project is None else project(x)
+    def solve(b):
+        if project is not None:
+            b = project(b)
+        x = mixed.ir_solve(mask, h1, h2, A, b, maxiter, coarse=coarse,
+                           project=project, cycles=cycles)
+        return x if project is None else project(x)
+
+    # symmetric: the backward is the same refined solve on the cotangent
+    return SymmetricSolve.apply(rhs, solve)

@@ -41,8 +41,8 @@ Each inner solve's transpose is the same solve on the cotangent
 the backward pass launches the K1 and K2 kernels once each per step, and
 on the fused-IR mixed path ``mixed_ir_cycles`` times each per step (the
 refinement cycles run inside the Function, so its backward is the refined
-solve).  The legacy mixed-precision step has no adjoint here (its refined
-solve is not differentiable).
+solve); on the legacy mixed path each solve's backward is its refined
+solve (``ops/mixed.py``), which launches K4 once per inner CG iteration.
 
 Along an evolving base (a periodic orbit, a forced orbit) the JAX package
 takes ``jax.jvp``/``jax.linearize`` of the whole nonlinear trajectory.  Here
@@ -295,11 +295,6 @@ class LinearizedOperator:
         ``torch.func.vjp`` at the zero history, built once (the step is
         linear, so the vjp does not depend on the point)."""
         if self._vjps is None:
-            if self.ns.mixed is not None:
-                raise NotImplementedError(
-                    "not ported: the adjoint of the legacy mixed-precision step "
-                    "(its refined solve is not differentiable)"
-                )
             zero = self.steps.fields(self._zero())
             self._vjps = [
                 torch.func.vjp(lambda df, k=k: self.steps.step(df, k), zero)[1]

@@ -45,7 +45,13 @@ Dirichlet lifts set to zero; the step is affine in its fields apart from
 the convection and the pointwise hooks (forcing, buoyancy, scalar source).
 
 Every option the port does not implement raises where it is read; the JAX
-stepper would quietly take another path instead.
+stepper would quietly take another path instead.  ``fused_solves`` is no
+such option: outside the kernels' scope the step runs the plain solves, as
+JAX's does.
+
+On a shard view of the SEM (``parallel/sharded.py``) the same step runs on
+one rank's elements; the SEM's sums and dots are collectives, and no
+kernel is built.
 """
 
 from __future__ import annotations
@@ -82,20 +88,12 @@ def _fused_ir(sem, solver: SolverConfig) -> bool:
             and solver.fused_solves and shift_decomposes(sem))
 
 
-def _scheme(sem, solver: SolverConfig, legacy_mixed: bool) -> str:
-    """The pressure scheme the JAX constructor picks, or raise where the
-    port does not implement it.  The legacy mixed path runs ``'laplacian'``
-    whatever ``pressure_operator`` says."""
+def _scheme(solver: SolverConfig, legacy_mixed: bool) -> str:
+    """The pressure scheme the JAX constructor picks.  The legacy mixed path
+    runs ``'laplacian'`` whatever ``pressure_operator`` says."""
     if solver.pressure_operator not in ("pnpn2", "laplacian", "consistent"):
         raise ValueError(f"unknown pressure_operator {solver.pressure_operator!r}")
-    if legacy_mixed:
-        return "laplacian"
-    if solver.fused_solves and (sem.ndim == 3 or solver.pressure_operator != "pnpn2"):
-        raise NotImplementedError(
-            "not ported: fused_solves outside the 2-D 'pnpn2' step "
-            f"({sem.ndim}-D '{solver.pressure_operator}')"
-        )
-    return solver.pressure_operator
+    return "laplacian" if legacy_mixed else solver.pressure_operator
 
 
 def _check_supported(solver: SolverConfig) -> None:
@@ -179,10 +177,21 @@ class NavierStokes:
         sponge_ref_T: Optional[torch.Tensor] = None,
     ):
         _check_supported(solver)
+        # a shard view (parallel/sharded.py) takes the JAX constructor's
+        # branches for ``sem.axis_name is not None``: no kernel, no set-up
+        # of preconditioners that are not element-local
+        sharded = sem.sharded
+        if sharded and mixed_precision:
+            raise NotImplementedError(
+                "mixed_precision on a shard view: the JAX reference cannot trace "
+                "it either (FusedHelmholtz.padfield converts the shard-local "
+                "geometry to numpy inside shard_map, "
+                "nekstab_next_tpu/ops/pallas_kernels.py:153)"
+            )
         # fused-IR mixed precision, or the legacy path (ops/mixed.py)
         self._mixed_ir = bool(mixed_precision) and _fused_ir(sem, solver)
         legacy = bool(mixed_precision) and not self._mixed_ir
-        self._scheme = _scheme(sem, solver, legacy)
+        self._scheme = _scheme(solver, legacy)
         self.sem = s = sem
         self.ndim = s.ndim
         self.nu = float(viscosity)
@@ -218,8 +227,10 @@ class NavierStokes:
         # fused local Helmholtz kernel K4, f64 refinement
         self.mixed = MixedPrecision(s) if legacy else None
 
-        # the exact-block preconditioners (ops/schwarz.py), built once here
-        if self._scheme == "pnpn2":
+        # the exact-block preconditioners (ops/schwarz.py), built once here;
+        # a shard view's element blocks arrive sharded (parallel/sharded.py)
+        # and its 'schwarz' falls back to them, as JAX's does
+        if self._scheme == "pnpn2" and not sharded:
             if solver.pressure_precond == "schwarz":
                 s.setup_pressure_schwarz(adjacency=solver.pressure_patch_overlap)
             elif solver.pressure_precond == "block":
@@ -227,15 +238,23 @@ class NavierStokes:
         # velocity blocks for the final (BDF3) stage's h2 = (11/6)/dt; the
         # two ramp steps see a mildly mismatched but SPD preconditioner
         self._vblocks = None
-        if solver.velocity_precond == "block" and not mixed_precision:
+        if solver.velocity_precond == "block" and not mixed_precision and not sharded:
             self._vblocks = s.setup_velocity_blocks(self.nu, _BDF[3][0] / self.dt)
 
-        # both inner solves as one CUDA kernel each (ops/fused_cg.py); on the
-        # fused-IR path the f32 inner solves of refinement, run to the
-        # f32-reachable 3e-6 at bounded caps (refinement supplies the rest)
+        # the inner solves as one CUDA kernel each (ops/fused_cg.py), where
+        # the JAX constructor builds its kernels: a 2-D single-device step
+        # with float32 fields or on the fused-IR path, K1 for the velocity
+        # and on 'pnpn2' K2 for the pressure; everywhere else (3-D, float64
+        # off fused-IR, a shard view) the plain solves, without a word.  JAX
+        # also asks that the mesh's exchange shift-decompose; the port's
+        # kernels gather over the node->copies table and need no shift, so
+        # they are built on any conforming mesh.  On the fused-IR path they
+        # are the f32 inner solves of refinement, run to the f32-reachable
+        # 3e-6 at bounded caps (refinement supplies the rest).
         self.fused_v = None
         self.fused_p = None
-        if solver.fused_solves and self.mixed is None:
+        if (solver.fused_solves and s.ndim == 2 and not sharded and self.mixed is None
+                and (s.dtype == torch.float32 or self._mixed_ir)):
             from ..ops.fused_cg import FusedHelmholtzCG, FusedPressureCG
 
             if self._mixed_ir:
@@ -246,10 +265,11 @@ class NavierStokes:
                 p_tol, p_cap = solver.pressure_tol, solver.pressure_maxiter
             self.fused_v = FusedHelmholtzCG(s, s.vmask, maxiter=v_cap, tol=v_tol,
                                             ir=self._mixed_ir)
-            self.fused_p = FusedPressureCG(
-                s, maxiter=p_cap, tol=p_tol,
-                project_mean=not s.has_pressure_dirichlet, ir=self._mixed_ir,
-            )
+            if self._scheme == "pnpn2":
+                self.fused_p = FusedPressureCG(
+                    s, maxiter=p_cap, tol=p_tol,
+                    project_mean=not s.has_pressure_dirichlet, ir=self._mixed_ir,
+                )
         # refinement cycles of both solves: 0 (one plain solve) off fused-IR
         self._ir_cycles = int(solver.mixed_ir_cycles) if self._mixed_ir else 0
 
@@ -534,7 +554,7 @@ class NavierStokes:
         if not s.has_pressure_dirichlet:
             # fully-enclosed flow: constants span null(E) exactly
             def project(q):
-                return q - torch.sum(q) / q.numel()
+                return q - s.glsum(q) / (q.numel() * s.nshards)
 
             if x0p is not None:
                 x0p = project(x0p)
@@ -554,7 +574,7 @@ class NavierStokes:
             precond=precond_p,
             tol=self.solver.pressure_tol,
             maxiter=self.solver.pressure_maxiter,
-            dot=lambda x, y: torch.sum(x * y),
+            dot=lambda x, y: s.glsum(x * y),
             project=project,
             fused_solve=(
                 (lambda r: self.fused_p.solve(r.contiguous()))

@@ -12,9 +12,13 @@ import torch
 
 
 def velocity_noise(sem, seed: int = 1234, amplitude: float = 1.0) -> torch.Tensor:
-    """C0, BC-compatible random velocity field (nelem, n, n[, n], ndim)."""
+    """C0, BC-compatible random velocity field (nelem, n, n[, n], ndim).  On
+    a shard view (``parallel/sharded.py``) the whole mesh's field is drawn
+    and this rank's elements kept, so a sharded seed is the single-device
+    seed, sharded."""
     rng = np.random.default_rng(seed)
-    raw = rng.standard_normal(tuple(sem.bm.shape) + (sem.ndim,))
+    raw = rng.standard_normal((sem.nelem_total,) + tuple(sem.bm.shape[1:]) + (sem.ndim,))
+    raw = raw[sem.elem_offset:sem.elem_offset + sem.nelem]
     q = torch.as_tensor(raw, dtype=sem.dtype, device=sem.device)
     q = sem.dsavg(q)  # make C0
     q = sem.vmask * q  # honor Dirichlet/symmetry masks

@@ -230,8 +230,26 @@ def test_tangent_propagator_and_dt_override(small_case):
     assert op.T == pytest.approx(3 * dt)
 
 
-def test_rmatvec_raises_on_the_mixed_stepper():
-    case = CylinderCase(nr=2, ntheta=4, order=4, device="cpu", mixed_precision=True)
-    op = LinearizedOperator(case.make_ns(), case.uniform_flow(), nsteps=2)
-    with pytest.raises(NotImplementedError, match="legacy mixed-precision step"):
-        op.rmatvec(case.uniform_flow())
+def test_mixed_rmatvec_matches_jax():
+    # once refused (NotImplementedError): the legacy mixed-precision step's
+    # adjoint.  Its refined solve now runs inside SymmetricSolve, as JAX's
+    # inside lax.custom_linear_solve(symmetric=True): the transpose of each
+    # solve is the same refined solve (K4's plain version on the CPU).  A
+    # 3 x 3 periodic box at order 4, 3 steps, about a random C0 base
+    mesh = box_mesh_2d(3, 3, order=4, x1=2 * np.pi, y1=2 * np.pi,
+                       periodic_x=True, periodic_y=True)
+    jsem = JaxSEM(mesh)
+    jns = JaxNavierStokes(jsem, viscosity=0.05, dt=0.01, mixed_precision=True)
+    ns = NavierStokes(sem_from_arrays(sem_arrays(jsem), device="cpu"), viscosity=0.05,
+                      dt=0.01, mixed_precision=True)
+    assert jns.mixed is not None and ns.mixed is not None and ns._scheme == "laplacian"
+    base, q, w = continuous(jsem, 0, 0.1), continuous(jsem, 2), continuous(jsem, 3)
+    ref = JaxLinearizedOperator(jns, jnp.asarray(base), nsteps=3).rmatvec(jnp.asarray(w))
+    op = LinearizedOperator(ns, torch.as_tensor(base), nsteps=3)
+    got = op.rmatvec(torch.as_tensor(w))
+    assert rel(got, ref) <= 1e-10, rel(got, ref)
+    assert ns.mixed.fused.launches == 0  # CPU: K4's plain version
+    bms = ns.sem.bms[..., None]
+    a = float(torch.sum(op.matvec(torch.as_tensor(q)) * torch.as_tensor(w) * bms))
+    b = float(torch.sum(torch.as_tensor(q) * got * bms))
+    assert abs(a - b) <= 1e-12 * max(abs(a), 1.0), (a, b)

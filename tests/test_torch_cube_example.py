@@ -96,6 +96,9 @@ def test_example_stages_on_the_tiny_cube(example, tmp_path, monkeypatch):
     (point,) = growth["points"]
     assert point["nsteps"] == 1 and np.isfinite(point["G"]) and point["G"] > 0.0
     assert point["adjoint_rel"] < 1e-6 and point["svds_residual"] < 5e-2
+    # the growth stage ran sharded over one gloo rank, whose shard view is
+    # the single-device computation: no cross-check against itself
+    assert "G_single_device" not in point and "sharded_vs_single_rel" not in point
 
     # the same call in the JAX package, about the saved base flow from the
     # same seed-11 start: the same Golub-Kahan iteration
@@ -117,7 +120,8 @@ def test_example_imports_no_jax():
     # modules this slice added or completed
     code = ("import importlib.util, sys\n"
             "import nekstab_next_tpu_torch.mesh.re2, nekstab_next_tpu_torch.ops.core3, "
-            "nekstab_next_tpu_torch.ops.schwarz, nekstab_next_tpu_torch.interop\n"
+            "nekstab_next_tpu_torch.ops.schwarz, nekstab_next_tpu_torch.interop, "
+            "nekstab_next_tpu_torch.parallel\n"
             f"spec = importlib.util.spec_from_file_location('m', {EXAMPLE!r})\n"
             "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"

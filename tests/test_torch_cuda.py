@@ -410,6 +410,29 @@ def test_mixed_cube_matvec_kernel_matches_plain(case):
     assert rel(got, ref) < 1e-9
 
 
+def test_mixed_rmatvec_launches_k4_in_its_backward(case):
+    # the legacy mixed step's adjoint: each refined solve's transpose is the
+    # same refined solve, K4 inside; held to K4's plain version, the first
+    # call and the adjoint identity (chip_smoke.mixed_rmatvec)
+    cube = CubeRoughnessCase(**CUBE, device="cuda",
+                             solver=SolverConfig(pressure_tol=1e-7, velocity_tol=1e-8,
+                                                 pressure_maxiter=300, velocity_maxiter=120))
+    rng = np.random.default_rng(11)
+    base = cube.initial_flow()
+    x0, yv = (cube.sem.vmask * torch.as_tensor(rng.standard_normal(tuple(base.shape)),
+                                                device="cuda") for _ in range(2))
+    out = chip_smoke.mixed_rmatvec(cube.sem, cube.h / cube.reynolds, cube.dt, cube.u_bc,
+                                   cube.solver, base, x0, yv, nsteps=2)
+    assert out["launches"] > 0 and out["rel"] < 1e-9 and out["adjoint_rel"] < 1e-8
+
+
+def test_laplacian_step_runs_k1(case):
+    # a 2-D f32 'laplacian' step with fused_solves: K1 for the velocity (one
+    # launch), the plain pressure solve, as JAX builds them
+    out = chip_smoke.laplacian_step(case)
+    assert out["launches"] == 1 and out["rel"] < 1e-4
+
+
 # a graded backward-facing step at order 5 (n = 6): the carved re-entrant
 # corner (a vertex of 3 elements) and the outflow pressure Dirichlet
 BFS_SMALL = dict(reynolds=500.0, order=5, elems_upstream=3, elems_downstream=8,

@@ -171,15 +171,60 @@ def test_fused_ir_path_on_the_taylor_green_box():
     assert ns.fused_v is not None and ns.fused_p.project_mean
 
 
-@pytest.mark.parametrize("dim,cfg,mixed,match", [
-    (3, dict(fused_solves=True), False, "fused_solves"),  # 3-D PnPn-2 on the kernels
-    (2, dict(pressure_operator="consistent", fused_solves=True), False, "consistent"),
-    (3, dict(pressure_operator="laplacian", fused_solves=True), False, "fused_solves"),
-])
-def test_unported_paths_raise(dim, cfg, mixed, match):
-    with pytest.raises(NotImplementedError, match=match):
-        NavierStokes(_port_sem(dim), viscosity=0.05, dt=0.01,
-                     solver=SolverConfig(**cfg), mixed_precision=mixed)
+# once refused as not ported (NotImplementedError): ``fused_solves`` where the
+# JAX constructor builds K1 alone or no kernel
+# (nekstab_next_tpu/stepper/navier_stokes.py:193-223).  The port selects as
+# JAX does: K1 for the velocity of a 2-D float32 'laplacian' or 'consistent'
+# step (on the CPU its plain version runs, held to the plain-solve step),
+# the plain solves on 3-D and float64 steps (the same step as without it).
+F32 = dict(velocity_tol=1e-6, pressure_tol=1e-5)
+
+
+@pytest.mark.parametrize("dim,cfg,dtype", [
+    (3, dict(), torch.float64),                                      # 3-D PnPn-2
+    (2, dict(F32, pressure_operator="consistent"), torch.float32),
+    (3, dict(pressure_operator="laplacian"), torch.float64),
+    (2, dict(F32, pressure_operator="laplacian"), torch.float32),
+    (2, dict(), torch.float64),                                      # f64 PnPn-2
+], ids=["3d_pnpn2", "2d_consistent_f32", "3d_laplacian", "2d_laplacian_f32", "2d_pnpn2_f64"])
+def test_fused_solves_select_kernels_as_jax(dim, cfg, dtype):
+    jsem = taylor_green()[0] if dim == 2 else JaxCube(**CUBE).sem
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.float64
+    if dtype == torch.float32:
+        jsem = JaxSEM(jsem.mesh, dtype=jdtype)
+    jns = JaxNavierStokes(jsem, viscosity=0.05, dt=0.01,
+                          solver=JaxSolverConfig(**cfg, fused_solves=True))
+    to_port = sem_from_arrays if dim == 2 else sem3_from_arrays
+    sem = to_port(sem_arrays(jsem) if dim == 2 else sem3_arrays(jsem), dtype=dtype,
+                  device="cpu")
+    ns = NavierStokes(sem, viscosity=0.05, dt=0.01,
+                      solver=SolverConfig(**cfg, fused_solves=True))
+    plain = NavierStokes(sem, viscosity=0.05, dt=0.01, solver=SolverConfig(**cfg))
+    assert (ns.fused_v is not None) == (jns._fused_v is not None) == (dtype == torch.float32)
+    assert ns.fused_p is None and jns._fused_p is None
+    calls = []
+    if ns.fused_v is not None:
+        solve = ns.fused_v.solve
+        ns.fused_v.solve = lambda *a: calls.append(1) or solve(*a)
+    u0 = torch.as_tensor(_field_like(sem), dtype=dtype)
+    a = ns.step(ns.make_state(u0))
+    b = plain.step(plain.make_state(u0))
+    if dtype == torch.float64:
+        # the same plain solves
+        assert torch.equal(a.u, b.u) and torch.equal(a.p, b.p)
+    else:
+        # K1's plain version (one call a step, no launch on the CPU) against
+        # the plain f32 solves, both to velocity_tol 1e-6
+        assert len(calls) == 1 and ns.fused_v.launches == 0
+        assert float((a.u - b.u).abs().max()) <= 1e-5 * float(b.u.abs().max())
+
+
+def _field_like(sem):
+    """A smooth divergence-carrying start on the Taylor-Green box, the cube's
+    inflow on the cube."""
+    if sem.ndim == 3:
+        return np.array(JaxCube(**CUBE).initial_flow())
+    return taylor_green()[1]
 
 
 def test_sem3_step_inputs_have_three_components():

@@ -105,11 +105,29 @@ def test_sem_rejects_3d_factors(sems):
         sem_from_arrays(arrays, device="cpu")
 
 
-def test_sem_rejects_sharding():
-    # the JAX SEM shards its element axis under axis_name; the port's SEM is
-    # single-device and says so instead of ignoring the argument
-    with pytest.raises(NotImplementedError, match="sharding"):
-        SEM(cylinder_mesh(nr=2, ntheta=4, order=4), device="cpu", axis_name="elements")
+def test_sem_shard_view_of_one_rank_is_the_sem():
+    # once refused (the JAX SEM's axis_name): a shard view over a one-rank
+    # gloo group holds every element and makes no collective, so its sums,
+    # reductions and coarse level give the whole SEM's bits; the host's
+    # 'schwarz' patches do not pass into the view
+    from nekstab_next_tpu_torch.parallel import make_device_mesh
+
+    sem = SEM(cylinder_mesh(nr=2, ntheta=4, order=4), device="cpu")
+    sem.setup_pressure_schwarz()
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal(tuple(sem.bm.shape) + (2,)))
+    dm = make_device_mesh(1, device="cpu")
+    try:
+        v = sem.shard_view(sem.elem_arrays(), dm.group)
+        assert v.sharded and not sem.sharded
+        assert v.group is None and v.nshards == 1 and v.pschwarz is None
+        assert v.pblock_inv is None and sem.pschwarz is not None
+        assert torch.equal(v.dssum(u), sem.dssum(u))
+        assert torch.equal(v.inner(u[..., 0], u[..., 1]), sem.inner(u[..., 0], u[..., 1]))
+        assert torch.equal(v.glmax(u), sem.glmax(u))
+        r = u[..., 0]
+        assert torch.equal(v.coarse_apply_pressure(r), sem.coarse_apply_pressure(r))
+    finally:
+        dm.close()
 
 
 def _inputs(jsem):

@@ -142,16 +142,17 @@ UNSUPPORTED = {
     "pressure_direct": dict(cfg=dict(pressure_direct=True)),
     "cg_fixed_iters": dict(cfg=dict(cg_fixed_iters=True)),
     "fused_pressure_off": dict(cfg=dict(fused_solves=True, fused_pressure=False)),
-    # 'consistent' is ported; its step on the fused kernels is not
-    "pressure_operator": dict(cfg=dict(pressure_operator="consistent", fused_solves=True)),
 }
 # once refused as not ported: the time-dependent lift (tests/test_torch_fst.py),
-# the scalars (tests/test_torch_scalars.py) and the finite-difference
-# propagator's flag (read by the analyses, not the stepper)
+# the scalars (tests/test_torch_scalars.py), the finite-difference
+# propagator's flag (read by the analyses, not the stepper) and fused_solves
+# on a 'consistent' step (the plain solves in f64, as JAX's; K1 in f32,
+# tests/test_torch_laplacian.py)
 ACCEPTED = {
     "u_bc_fn": dict(kw=dict(u_bc_fn=lambda t: 0.0)),
     "scalars": dict(kw=dict(scalar_diff=(0.01,))),
     "finite_difference": dict(cfg=dict(finite_difference=True)),
+    "pressure_operator": dict(cfg=dict(pressure_operator="consistent", fused_solves=True)),
 }
 
 
@@ -199,9 +200,8 @@ def test_unknown_preconditioner_names_raise(cfg):
 
 
 def test_fused_solves_raise_outside_kernel_scope():
-    with pytest.raises(ValueError, match="float32"):  # f64 fields
-        CylinderCase(nr=2, ntheta=4, device="cpu",
-                     solver=SolverConfig(fused_solves=True)).make_ns()
+    # (f64 fields, once refused here too, now run the plain solves as JAX's:
+    # tests/test_torch_laplacian.py)
     with pytest.raises(ValueError, match="order"):  # n = 10: no 64-thread slot
         CylinderCase(nr=2, ntheta=4, order=9, dtype=torch.float32, device="cpu",
                      solver=SolverConfig(fused_solves=True)).make_ns()
