@@ -13,7 +13,8 @@ horizon is the orbit's period).  With a thermal stepper (``ns.nscal > 0``)
 the Krylov vectors are coupled ``(velocity, scalars)`` pairs in the energy
 product over both (``coupled_space``), about ``(base_u, base_T)``.
 ``SolverConfig.finite_difference`` selects the finite-difference
-propagator (direct only)."""
+propagator (direct only).  ``resolvent_analysis`` is also importable from
+here, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -238,3 +239,11 @@ def transient_growth_analysis(
         n_matvecs=res.n_matvecs,
         residuals=res.residuals,
     )
+
+
+def resolvent_analysis(*args, **kwargs):
+    """``algorithms/resolvent.py``'s :func:`resolvent_analysis`, imported on
+    call (that module imports this one)."""
+    from .resolvent import resolvent_analysis as _ra
+
+    return _ra(*args, **kwargs)

@@ -120,6 +120,11 @@ class Mesh2D:
         dy = np.diff(self.x, axis=2) ** 2 + np.diff(self.y, axis=2) ** 2
         return float(np.sqrt(min(dx.min(), dy.min())))
 
+    def integrate(self, f: np.ndarray) -> float:
+        """Quadrature integral of a nodal field (counts shared nodes once by
+        construction: local bm weights sum to the assembled weight)."""
+        return float(np.sum(f * self.bm))
+
 
 def build_mesh(
     x: np.ndarray,
