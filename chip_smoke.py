@@ -872,32 +872,41 @@ def pipeline_phase(tag: str, dev) -> dict:
             "lam": {k: load(k).meta["eigenvalue"] for k in ("dRe", "aRe")},
             "summary": summary, "f64_step_ms": steps, "f32_step_ms": ms["f32 matvec"] / NSTEPS}
 
-def cg_iterations(k, barriers: int) -> int:
-    """CG iterations of a K1/K2 launch from its grid barriers: 2 + 4 k, and
-    2 more with K2's mean projection (csrc/fused_*_cg.cu)."""
-    return (barriers - 2 - 2 * int(getattr(k, "project_mean", False))) // 4
-
-
 @contextlib.contextmanager
 def recording_solves(ns, log_calls: list):
     """Record every K1/K2 launch of the stepper: (kernel, f32 rhs, its other
-    arguments, CG iterations from the launch's barriers).  Synchronises."""
+    arguments, CG iterations), the iterations from the program's iteration
+    log (``utils/tracing.py``), filled in when the block ends.  Synchronises."""
+    from nekstab_next_tpu_torch.utils import tracing
+
     fv, fp = ns.fused_v, ns.fused_p
+    names = {"fused_helmholtz_cg": fv.KERNEL, "fused_pressure_cg": fp.KERNEL}
+    start = len(log_calls)
 
     def wrap(k, name):
         solve = k.solve
 
         def run(rhs, *a):
             out = solve(rhs, *a)
-            log_calls.append((name, rhs.float().clone(), a, cg_iterations(k, k.last_barriers())))
+            log_calls.append((name, rhs.float().clone(), a))
             return out
         return run
 
     fv.solve, fp.solve = wrap(fv, "fused_helmholtz_cg"), wrap(fp, "fused_pressure_cg")
+    tracing.take()
+    tracing.enable()
     try:
         yield
     finally:
+        tracing.disable()
         del fv.solve, fp.solve
+    its = tracing.take().iterations
+    for name, k in names.items():
+        calls = [i for i in range(start, len(log_calls)) if log_calls[i][0] == name]
+        if len(its.get(k, [])) != len(calls):
+            fail(f"{name}: {len(calls)} solves, {len(its.get(k, []))} in the iteration log")
+        for i, n in zip(calls, its.get(k, [])):
+            log_calls[i] += (n,)
 
 
 def fused_ir_phase(tag: str, dev, pipe: dict) -> dict:
@@ -2315,9 +2324,17 @@ def main() -> None:
     }
     for name, (ms_k, ms_p) in solve_ms.items():
         log(f"timing {tag} one {name} solve (flagship caps): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+    from nekstab_next_tpu_torch.utils import tracing
+
+    tracing.take()
+    tracing.enable()
     k1.solve(rhs_v, h1, h2)
     fp.solve(rhs_p)
-    phases = {"fused_helmholtz_cg": k1.last_barriers(), "fused_pressure_cg": fp.last_barriers()}
+    tracing.disable()
+    its = tracing.take().iterations
+    # each launch's barriers: its iterations' four, and those outside them
+    phases = {"fused_helmholtz_cg": k1.fixed_barriers + 4 * its["k1"][0],
+              "fused_pressure_cg": fp.fixed_barriers + 4 * its["k2"][0]}
     log(f"grid barriers of the timed solves: {phases}")
     sweep = cg_sweep(sem, rhs_v, rhs_p, h1, h2, tag)
 

@@ -12,6 +12,7 @@ from typing import Callable
 
 import numpy as np
 
+from ..utils import tracing
 from .vector import Basis, VectorSpace
 
 
@@ -40,10 +41,11 @@ def arnoldi_step(
     (host numpy).  Returns the residual norm H[j+1, j]; the column written
     on breakdown (beta ~ 0) is never read, callers stop there."""
     w = matvec(basis.get(j))
-    h, beta = basis.ortho_insert(w, j)
-    beta = float(beta)
-    H[: basis.capacity, j] = h.double().cpu().numpy()
-    H[j + 1, j] = beta
+    with tracing.span("krylov.ortho"):
+        h, beta = basis.ortho_insert(w, j)
+        beta = float(beta)
+        H[: basis.capacity, j] = h.double().cpu().numpy()
+        H[j + 1, j] = beta
     return beta
 
 

@@ -12,7 +12,13 @@ the Hessenberg after every restart and resumes a fresh call from the last
 saved one; ``checkpoint_steps`` also persists every Arnoldi column as it
 is produced, so a run stopped mid-factorization resumes at its last
 matvec.  The files are the JAX package's: either package resumes the
-other's."""
+other's.
+
+Spans (``utils/tracing.py``): ``krylov.eigs`` around an analysis (the root
+of its spans), ``krylov.ortho`` around each Arnoldi step's
+orthogonalisation (``arnoldi.py``), ``krylov.ritz`` around the Ritz
+values and residuals, ``krylov.restart`` around the Schur condensation and
+the basis rotation."""
 
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
+from ..utils import tracing
 from .arnoldi import arnoldi_step
 from .dense import eig_sorted, schur_select
 from .vector import Basis, VectorSpace
@@ -55,6 +62,7 @@ class EigenResult:
         return float(np.max(np.abs(G - np.eye(k))))
 
 
+@tracing.spanned("krylov.eigs")
 def eigs(
     matvec: Callable,
     space: VectorSpace,
@@ -129,11 +137,12 @@ def eigs(
             if beta <= 1e-12:
                 break
 
-        Hk = H[:k_dim, :k_dim]
-        beta = H[k_dim, k_dim - 1]
-        vals, vecs = eig_sorted(Hk)
-        # rank-one remainder: A Q - Q H = q_{k+1} * beta * e_k^T
-        res = np.abs(beta * vecs[k_dim - 1, :])
+        with tracing.span("krylov.ritz"):
+            Hk = H[:k_dim, :k_dim]
+            beta = H[k_dim, k_dim - 1]
+            vals, vecs = eig_sorted(Hk)
+            # rank-one remainder: A Q - Q H = q_{k+1} * beta * e_k^T
+            res = np.abs(beta * vecs[k_dim - 1, :])
         ncv = int(np.sum(res[:nev] < tol)) if len(res) >= nev else 0
         history.append(
             dict(restart=restart, n_converged=int(np.sum(res < tol)),
@@ -144,26 +153,27 @@ def eigs(
         if restart == max_restarts:
             break
 
-        # ---- Schur condensation restart ------------------------------
-        def select(lams: np.ndarray) -> np.ndarray:
-            keep = np.abs(lams) >= 1.0 - schur_del
-            need = min(max(int(keep.sum()), nev + 4), k_dim - 2)
-            order = np.argsort(-np.abs(lams))
-            mask = np.zeros(len(lams), dtype=bool)
-            mask[order[:need]] = True
-            return mask
+        with tracing.span("krylov.restart"):
+            # ---- Schur condensation restart ------------------------------
+            def select(lams: np.ndarray) -> np.ndarray:
+                keep = np.abs(lams) >= 1.0 - schur_del
+                need = min(max(int(keep.sum()), nev + 4), k_dim - 2)
+                order = np.argsort(-np.abs(lams))
+                mask = np.zeros(len(lams), dtype=bool)
+                mask[order[:need]] = True
+                return mask
 
-        T, Z, m = schur_select(Hk, select)
-        # rotate the basis: new q_0..q_{m-1} = Q Z[:, :m]; q_m = old q_k
-        qk = space.scale(1.0, basis.get(k_dim))  # a copy: rotate overwrites
-        V = np.zeros((k_dim + 1, m))
-        V[:k_dim, :] = Z[:, :m]
-        basis.rotate(V)
-        basis.set(m, qk)
-        # new H: leading block T_m, residual row beta * Z[k-1, :m]
-        H[:] = 0.0
-        H[:m, :m] = T[:m, :m]
-        H[m, :m] = beta * Z[k_dim - 1, :m]
+            T, Z, m = schur_select(Hk, select)
+            # rotate the basis: new q_0..q_{m-1} = Q Z[:, :m]; q_m = old q_k
+            qk = space.scale(1.0, basis.get(k_dim))  # a copy: rotate overwrites
+            V = np.zeros((k_dim + 1, m))
+            V[:k_dim, :] = Z[:, :m]
+            basis.rotate(V)
+            basis.set(m, qk)
+            # new H: leading block T_m, residual row beta * Z[k-1, :m]
+            H[:] = 0.0
+            H[:m, :m] = T[:m, :m]
+            H[m, :m] = beta * Z[k_dim - 1, :m]
 
         if checkpoint is not None:
             checkpoint.save(host(basis.Q), H, m, restart=restart, n_matvecs=nmv)

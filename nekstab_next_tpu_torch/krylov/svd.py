@@ -19,6 +19,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from ..utils import tracing
 from .arnoldi import orthogonalize
 from .krylov_schur import eigs
 from .vector import Basis, VectorSpace
@@ -33,6 +34,7 @@ class SVDResult:
     n_matvecs: int
 
 
+@tracing.spanned("krylov.svds")
 def svds(
     direct: Callable,
     adjoint: Callable,
@@ -74,9 +76,10 @@ def svds(
             # subtract the known U components: beta_{j-1} u_{j-1}, or the
             # augmented column after a restart; full reorthogonalization
             # mops up the rest
-            p, h = orthogonalize(space, U, p, ncols=j)
-            h = h.double().cpu().numpy()
-            alpha = float(space.norm(p))
+            with tracing.span("krylov.ortho"):
+                p, h = orthogonalize(space, U, p, ncols=j)
+                h = h.double().cpu().numpy()
+                alpha = float(space.norm(p))
             if alpha <= 1e-300:
                 alpha = 0.0
             else:
@@ -89,8 +92,9 @@ def svds(
 
             s = adjoint(U.get(j))
             nmv += 1
-            s, _ = orthogonalize(space, V, s, ncols=j + 1)
-            beta = float(space.norm(s))
+            with tracing.span("krylov.ortho"):
+                s, _ = orthogonalize(space, V, s, ncols=j + 1)
+                beta = float(space.norm(s))
             B[j, j + 1] = beta
             if beta <= 1e-300:
                 break

@@ -20,6 +20,11 @@ cycles run inside :class:`SymmetricSolve`, so the tangent and the adjoint
 of a refined solve are the same refined solve, as JAX's
 ``custom_linear_solve`` gives them.
 
+Spans (``utils/tracing.py``): ``solve.inner`` around each inner solve
+(``pcg``, or a fused kernel's launch with its casts) and
+``solve.residual`` around each later refinement cycle's residual with its
+projection.
+
 Not ported (TPU workarounds): the lanes layout, ``unroll`` and
 ``cg_fixed_iters``.
 """
@@ -29,6 +34,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from ..utils import tracing
 
 
 def _sdiv(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -165,10 +172,14 @@ def _refined(inner: Callable, A: Callable, rhs: torch.Tensor, cycles: int,
     r = rhs
     for i in range(cycles):
         if i:
-            r = rhs - A(x)
-        if project is not None:
+            with tracing.span("solve.residual"):
+                r = rhs - A(x)
+                if project is not None:
+                    r = project(r)
+        elif project is not None:
             r = project(r)
-        dx = inner(r)
+        with tracing.span("solve.inner"):
+            dx = inner(r)
         if project is not None:
             dx = project(dx)
         x = x + dx
@@ -182,7 +193,8 @@ def _solve(operator, b, precond, tol, maxiter, dot, project, inner_op, fused_sol
     def _iterate(A_it, rhs, M_it):
         if project is not None:
             rhs = project(rhs)
-        x = pcg(A_it, rhs, precond=M_it, tol=tol, maxiter=maxiter, dot=dot)
+        with tracing.span("solve.inner"):
+            x = pcg(A_it, rhs, precond=M_it, tol=tol, maxiter=maxiter, dot=dot)
         return x if project is None else project(x)
 
     if inner_op is not None:
@@ -194,11 +206,14 @@ def _solve(operator, b, precond, tol, maxiter, dot, project, inner_op, fused_sol
         elif ir_cycles:
             x = _refined(fused_solve, A_sub, rP, ir_cycles, project)
         else:
-            x = fused_solve(rP)
+            with tracing.span("solve.inner"):
+                x = fused_solve(rP)
         return x + comp
     if fused_solve is not None:
         if ir_cycles:
             return _refined(fused_solve, operator, b, ir_cycles, project)
-        x = fused_solve(b if project is None else project(b))
+        b = b if project is None else project(b)
+        with tracing.span("solve.inner"):
+            x = fused_solve(b)
         return x if project is None else project(x)
     return _iterate(operator, b, precond)

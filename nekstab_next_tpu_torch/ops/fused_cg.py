@@ -18,8 +18,9 @@ same early exit at ``rr <= tol^2 bb`` and ``maxiter`` cap, the same FDM
 threshold and preconditioners — written with the ``SEM`` operators; the
 tests hold it against the JAX kernels and the card holds the kernels
 against it.  Each instance counts its kernel launches in ``launches`` and
-keeps the last launch's grid (``grid``, ``resident``) and barrier count
-(``last_barriers``).
+keeps the last launch's grid (``grid``, ``resident``); while tracing is on
+(``utils/tracing.py``) each launch's, or CPU solve's, CG iterations go to
+the kernel's iteration log.
 
 Scope: 2-D, single device, float32 fields, n = order + 1 in 4..8 (one
 element's n*n nodes fit a 64-thread slot).  Unlike the TPU kernels, any
@@ -44,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .cg import pcg
 from .core import gather_table
 from .schwarz import make_pressure_operator
@@ -88,6 +90,9 @@ def f32_twin(sem):
 
 
 class _FusedBase:
+    KERNEL: str  # the kernel's name in the iteration logs
+    fixed_barriers = 2  # grid barriers a launch crosses outside its iterations
+
     def __init__(self, sem, maxiter: int, tol: float, ir: bool = False):
         check_kernel_scope(sem, ir)
         self.sem = sem
@@ -129,12 +134,19 @@ class _FusedBase:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
         self.grid, self.resident = int(info[0]), int(info[1])
         self.launches += 1
+        log = tracing.iteration_log(self.KERNEL)
+        if log is not None:
+            log.launch(self._sync[4 * self.E:].view(torch.int32)[:1], self.grid,
+                       self.fixed_barriers)
 
-    def last_barriers(self) -> int:
-        """Grid barriers the last launch crossed (synchronises): every block
-        adds one to the counter per barrier."""
-        count = self._sync[4 * self.E:].view(torch.int32)[0]
-        return int(count) // self.grid
+    def _plain_logged(self, *args):
+        """``plain`` on a CPU tensor, its iterations logged while tracing is on."""
+        log = tracing.iteration_log(self.KERNEL)
+        if log is None:
+            return self.plain(*args)
+        x, k = self.plain(*args, return_iters=True)
+        log.solve(k)
+        return x
 
     def _check(self, x: torch.Tensor, shape) -> None:
         if x.device.type != "cuda":
@@ -158,6 +170,8 @@ class FusedHelmholtzCG(_FusedBase):
 
     Replaces the TPU kernel ``nekstab_next_tpu/ops/fused_cg.py``
     ``FusedHelmholtzCG._build_call``."""
+
+    KERNEL = "k1"
 
     def __init__(self, sem, mask: torch.Tensor, maxiter: int, tol: float,
                  ir: bool = False):
@@ -195,7 +209,7 @@ class FusedHelmholtzCG(_FusedBase):
         """Solve A x = rhs for rhs in range(P); rhs (E, n, n[, C]), float32,
         or float64 on the fused-IR route (solved at float32)."""
         if rhs.device.type == "cpu":
-            return self.plain(rhs, h1, h2)
+            return self._plain_logged(rhs, h1, h2)
         x = self._launch(rhs.to(torch.float32).contiguous(), float(h1), float(h2))
         return x.to(rhs.dtype)
 
@@ -250,11 +264,14 @@ class FusedPressureCG(_FusedBase):
     Replaces the TPU kernel ``nekstab_next_tpu/ops/fused_cg.py``
     ``FusedPressureCG._build_call``."""
 
+    KERNEL = "k2"
+
     def __init__(self, sem, maxiter: int, tol: float, project_mean: bool = False,
                  ir: bool = False):
         super().__init__(sem, maxiter, tol, ir)
         sem.setup_pressure_blocks()
         self.project_mean = bool(project_mean)
+        self.fixed_barriers = 2 + 2 * self.project_mean  # the mean projection's two
         self.npr = sem.npr
 
     def _project(self, q: torch.Tensor) -> torch.Tensor:
@@ -277,7 +294,7 @@ class FusedPressureCG(_FusedBase):
         """Solve E q = rhs; rhs (E, npr, npr), float32, or float64 on the
         fused-IR route (solved at float32)."""
         if rhs.device.type == "cpu":
-            return self.plain(rhs)
+            return self._plain_logged(rhs)
         return self._launch(rhs.to(torch.float32).contiguous()).to(rhs.dtype)
 
     def _launch(self, rhs: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,11 @@ the explicit term (``NavierStokes._implicit``, one ``vjp`` per BDF stage,
 built once) and the explicit term's tangent about ``u_n`` (one small
 ``vjp`` a step, no solves), so an f32 transpose launches K1 and K2 once
 each per step in its backward, as ``rmatvec`` does.
+
+Spans (``utils/tracing.py``): ``prop.matvec`` and ``prop.rmatvec`` around
+:class:`LinearizedOperator`'s applications, and ``step`` around each
+stage ``vjp`` an ``rmatvec`` applies (its backward's solves are its
+children).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..utils import tracing
 from .navier_stokes import NavierStokes
 
 # a velocity field, or the (u, T) pair of a stepper with scalars
@@ -267,7 +273,8 @@ class LinearizedOperator:
 
     def matvec(self, q: Base) -> Base:
         """Direct map: nsteps tangent steps from a zero history."""
-        return self.steps.integrate(q, self.nsteps)
+        with tracing.span("prop.matvec"):
+            return self.steps.integrate(q, self.nsteps)
 
     # -- adjoint -------------------------------------------------------
     def _mass_weight(self, w: Base) -> Base:
@@ -312,11 +319,13 @@ class LinearizedOperator:
     def rmatvec(self, w: Base) -> Base:
         """Adjoint in the (sponge-masked) energy product:
         M* = W^+ M^T W with W = diag(bm1s)."""
-        vjps = self._stage_vjps()
-        ct = self.steps.fields(self._mass_weight(w))
-        for i in reversed(range(self.nsteps)):
-            (ct,) = vjps[min(i, 2)](ct)
-        return self._mass_unweight(self.steps.out(ct))
+        with tracing.span("prop.rmatvec"):
+            vjps = self._stage_vjps()
+            ct = self.steps.fields(self._mass_weight(w))
+            for i in reversed(range(self.nsteps)):
+                with tracing.span("step"):
+                    (ct,) = vjps[min(i, 2)](ct)
+            return self._mass_unweight(self.steps.out(ct))
 
 
 def make_tangent_propagator(ns: NavierStokes, nsteps: int) -> Callable:

@@ -52,6 +52,11 @@ JAX's does.
 On a shard view of the SEM (``parallel/sharded.py``) the same step runs on
 one rank's elements; the SEM's sums and dots are collectives, and no
 kernel is built.
+
+Spans (``utils/tracing.py``): ``step`` around :meth:`_core`, inside it
+``step.explicit`` (the explicit terms and lifts), ``step.velocity`` (the
+velocity RHS and solve, to ``ustar``), ``step.pressure`` (its RHS and
+solve) and ``step.projection`` (the projection and the packing).
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from ..ops.cg import cg_solve
 from ..ops.elliptic import elliptic_solve
 from ..ops.exchange import shift_decomposes
 from ..ops.mixed import MixedPrecision, elliptic_solve_mixed
+from ..utils import tracing
 from .state import FlowState, initial_state
 
 # BDFk / EXTk coefficients, index k-1 (padded to length 3)
@@ -422,19 +428,20 @@ class NavierStokes:
         constructor's time step."""
         u0 = fields[0]
         T0 = fields[4] if self.nscal else None
-        if lin_base is None:
-            E = self._explicit_weak(u0, time, fc=fc, T=T0)
-            lift = self._lift(time, self.dt if dt is None else float(dt))
-            if self.nscal:
-                E = (E, self._explicit_scalar(u0, T0, time, fcT=fcT))
-                lift = (lift, self.t_bc)
+        with tracing.span("step"):
+            with tracing.span("step.explicit"):
+                if lin_base is None:
+                    E = self._explicit_weak(u0, time, fc=fc, T=T0)
+                    lift = self._lift(time, self.dt if dt is None else float(dt))
+                    if self.nscal:
+                        E = (E, self._explicit_scalar(u0, T0, time, fcT=fcT))
+                        lift = (lift, self.t_bc)
+                elif self.nscal:
+                    E = self._explicit_lin(lin_base, (u0, T0), time, fc=fc, fcT=fcT)
+                    lift = (torch.zeros_like(u0), torch.zeros_like(T0))
+                else:
+                    E, lift = self._explicit_lin(lin_base, u0, time, fc=fc), torch.zeros_like(u0)
             return self._implicit(fields, E, k, lift, dt)
-        if self.nscal:
-            E = self._explicit_lin(lin_base, (u0, T0), time, fc=fc, fcT=fcT)
-            zero = (torch.zeros_like(u0), torch.zeros_like(T0))
-        else:
-            E, zero = self._explicit_lin(lin_base, u0, time, fc=fc), torch.zeros_like(u0)
-        return self._implicit(fields, E, k, zero, dt)
 
     def _implicit(self, fields: Tuple, E0, k: int, u_bc,
                   dt: Optional[float] = None) -> Tuple:
@@ -461,62 +468,63 @@ class NavierStokes:
         def Minv_free(g):
             return vmask * (binv * s.dssum(vmask * g))
 
-        # weak RHS for the Helmholtz solve, with the weak gradient of the
-        # current pressure (D^T p for 'pnpn2' and 'consistent', -B grad p
-        # for 'laplacian')
-        rhs = (
-            (1.0 / dt) * bm * (b[0] * u0 + b[1] * ulag0[0] + b[2] * ulag0[1])
-            + a[0] * E0 + a[1] * nlag0[0] + a[2] * nlag0[1]
-        )
-        if pnpn2:
-            rhs = rhs + s.grad_from_p(p0)
-        elif consistent:
-            rhs = rhs + s.divv_weak_t(p0)
-        else:
-            rhs = rhs - bm * s.gradv(p0)
-
-        # ---- velocity Helmholtz solve with Dirichlet lift ---------------
-        h2 = g0 / dt
-        ndim = self.ndim
-
-        def helm_local(w):
-            return torch.stack(
-                [s.helmholtz_local(w[..., d], self.nu, h2) for d in range(ndim)], dim=-1
+        with tracing.span("step.velocity"):
+            # weak RHS for the Helmholtz solve, with the weak gradient of the
+            # current pressure (D^T p for 'pnpn2' and 'consistent', -B grad p
+            # for 'laplacian')
+            rhs = (
+                (1.0 / dt) * bm * (b[0] * u0 + b[1] * ulag0[0] + b[2] * ulag0[1])
+                + a[0] * E0 + a[1] * nlag0[0] + a[2] * nlag0[1]
             )
-
-        fdm = self.solver.fdm_precond
-        if self.mixed is not None:
-            # the mixed branch takes no warm start (as the JAX package's)
-            w = elliptic_solve_mixed(
-                s, self.mixed, self.nu, h2, rhs - helm_local(u_bc), vmask,
-                maxiter=self.solver.velocity_maxiter,
-            )
-        else:
-            # warm start from the current velocity: solve for the correction
-            # only; the guess must lie in the masked continuous subspace
-            if self.solver.warm_start:
-                x0v = vmask * s.dsavg(vmask * (u0 - u_bc))
+            if pnpn2:
+                rhs = rhs + s.grad_from_p(p0)
+            elif consistent:
+                rhs = rhs + s.divv_weak_t(p0)
             else:
-                x0v = torch.zeros_like(u0)
-            fused_v = None
-            if self.fused_v is not None:
-                fv = self.fused_v
-                # the kernels take contiguous tensors; einsum outputs may be views
-                fused_v = lambda r: fv.solve(r.contiguous(), self.nu, h2)
-            w = x0v + elliptic_solve(
-                s,
-                helm_local,
-                rhs - helm_local(u_bc + x0v),
-                vmask,
-                tol=self.solver.velocity_tol,
-                maxiter=self.solver.velocity_maxiter,
-                diag_local=None if fdm else self.nu * self._kdiag_local + h2 * s.bm,
-                fdm=(self.nu, h2) if fdm else None,
-                vblocks=self._vblocks,
-                fused_solve=fused_v,
-                ir_cycles=self._ir_cycles,
-            )
-        ustar = w + u_bc
+                rhs = rhs - bm * s.gradv(p0)
+
+            # ---- velocity Helmholtz solve with Dirichlet lift ---------------
+            h2 = g0 / dt
+            ndim = self.ndim
+
+            def helm_local(w):
+                return torch.stack(
+                    [s.helmholtz_local(w[..., d], self.nu, h2) for d in range(ndim)], dim=-1
+                )
+
+            fdm = self.solver.fdm_precond
+            if self.mixed is not None:
+                # the mixed branch takes no warm start (as the JAX package's)
+                w = elliptic_solve_mixed(
+                    s, self.mixed, self.nu, h2, rhs - helm_local(u_bc), vmask,
+                    maxiter=self.solver.velocity_maxiter,
+                )
+            else:
+                # warm start from the current velocity: solve for the correction
+                # only; the guess must lie in the masked continuous subspace
+                if self.solver.warm_start:
+                    x0v = vmask * s.dsavg(vmask * (u0 - u_bc))
+                else:
+                    x0v = torch.zeros_like(u0)
+                fused_v = None
+                if self.fused_v is not None:
+                    fv = self.fused_v
+                    # the kernels take contiguous tensors; einsum outputs may be views
+                    fused_v = lambda r: fv.solve(r.contiguous(), self.nu, h2)
+                w = x0v + elliptic_solve(
+                    s,
+                    helm_local,
+                    rhs - helm_local(u_bc + x0v),
+                    vmask,
+                    tol=self.solver.velocity_tol,
+                    maxiter=self.solver.velocity_maxiter,
+                    diag_local=None if fdm else self.nu * self._kdiag_local + h2 * s.bm,
+                    fdm=(self.nu, h2) if fdm else None,
+                    vblocks=self._vblocks,
+                    fused_solve=fused_v,
+                    ir_cycles=self._ir_cycles,
+                )
+            ustar = w + u_bc
         out = self._pressure(ustar, fields, E0, g0, dt, u_bc, Minv_free)
         if self.nscal:
             out = out[:4] + self._scalars(fields, ET0, t_bc, g0, b, a, dt) + out[4:]
@@ -532,63 +540,69 @@ class NavierStokes:
         s = self.sem
         vmask = s.vmask
         if self._scheme == "laplacian":
-            dp = self._pressure_laplacian(ustar, dp0, g0, dt)
-            # approximate projection, mass-averaged back onto C0; the lift
-            # is zero in the tangent step
-            u_new = ustar - (dt / g0) * s.gradv(dp)
-            u_new = vmask * s.dsavg_mass(u_new) + u_bc
-            return self._pack(u_new, p0 + dp, u0, ulag0, E0, nlag0, dp0, dp)
+            with tracing.span("step.pressure"):
+                dp = self._pressure_laplacian(ustar, dp0, g0, dt)
+            with tracing.span("step.projection"):
+                # approximate projection, mass-averaged back onto C0; the lift
+                # is zero in the tangent step
+                u_new = ustar - (dt / g0) * s.gradv(dp)
+                u_new = vmask * s.dsavg_mass(u_new) + u_bc
+                return self._pack(u_new, p0 + dp, u0, ulag0, E0, nlag0, dp0, dp)
         if self._scheme == "consistent":
-            dp = self._pressure_consistent(ustar, dp0, g0, dt, Minv_free)
-            # discretely divergence-free; Dirichlet rows of the correction
-            # vanish (Minv_free masks), so BCs stay intact
-            u_new = ustar + (dt / g0) * Minv_free(s.divv_weak_t(dp))
-            return self._pack(u_new, p0 + dp, u0, ulag0, E0, nlag0, dp0, dp)
+            with tracing.span("step.pressure"):
+                dp = self._pressure_consistent(ustar, dp0, g0, dt, Minv_free)
+            with tracing.span("step.projection"):
+                # discretely divergence-free; Dirichlet rows of the correction
+                # vanish (Minv_free masks), so BCs stay intact
+                u_new = ustar + (dt / g0) * Minv_free(s.divv_weak_t(dp))
+                return self._pack(u_new, p0 + dp, u0, ulag0, E0, nlag0, dp0, dp)
 
-        # ---- pressure-increment solve on the Gauss space ----------------
-        def E_op(q):
-            return s.div_to_p(Minv_free(s.grad_from_p(q)))
+        with tracing.span("step.pressure"):
+            # ---- pressure-increment solve on the Gauss space ----------------
+            def E_op(q):
+                return s.div_to_p(Minv_free(s.grad_from_p(q)))
 
-        x0p = dp0 if (dp0 is not None and self.solver.warm_start) else None
-        project = None
-        if not s.has_pressure_dirichlet:
-            # fully-enclosed flow: constants span null(E) exactly
-            def project(q):
-                return q - s.glsum(q) / (q.numel() * s.nshards)
+            x0p = dp0 if (dp0 is not None and self.solver.warm_start) else None
+            project = None
+            if not s.has_pressure_dirichlet:
+                # fully-enclosed flow: constants span null(E) exactly
+                def project(q):
+                    return q - s.glsum(q) / (q.numel() * s.nshards)
 
+                if x0p is not None:
+                    x0p = project(x0p)
+            rhs_p = -(g0 / dt) * s.div_to_p(ustar)
             if x0p is not None:
-                x0p = project(x0p)
-        rhs_p = -(g0 / dt) * s.div_to_p(ustar)
-        if x0p is not None:
-            rhs_p = rhs_p - E_op(x0p)
-        pp = self.solver.pressure_precond
-        if pp == "schwarz" and s.pschwarz is not None:
-            precond_p = s.pressure_precond_schwarz
-        elif pp in ("block", "schwarz") and s.pblock_inv is not None:
-            precond_p = s.pressure_precond_block
-        else:
-            precond_p = s.pressure_precond_pnpn2
-        dp = cg_solve(
-            E_op,
-            rhs_p,
-            precond=precond_p,
-            tol=self.solver.pressure_tol,
-            maxiter=self.solver.pressure_maxiter,
-            dot=lambda x, y: s.glsum(x * y),
-            project=project,
-            fused_solve=(
-                (lambda r: self.fused_p.solve(r.contiguous()))
-                if self.fused_p is not None else None
-            ),
-            ir_cycles=self._ir_cycles,
-        )
-        if x0p is not None:
-            dp = dp + x0p
+                rhs_p = rhs_p - E_op(x0p)
+            pp = self.solver.pressure_precond
+            if pp == "schwarz" and s.pschwarz is not None:
+                precond_p = s.pressure_precond_schwarz
+            elif pp in ("block", "schwarz") and s.pblock_inv is not None:
+                precond_p = s.pressure_precond_block
+            else:
+                precond_p = s.pressure_precond_pnpn2
+            dp = cg_solve(
+                E_op,
+                rhs_p,
+                precond=precond_p,
+                tol=self.solver.pressure_tol,
+                maxiter=self.solver.pressure_maxiter,
+                dot=lambda x, y: s.glsum(x * y),
+                project=project,
+                fused_solve=(
+                    (lambda r: self.fused_p.solve(r.contiguous()))
+                    if self.fused_p is not None else None
+                ),
+                ir_cycles=self._ir_cycles,
+            )
+            if x0p is not None:
+                dp = dp + x0p
 
-        # ---- projection: discretely divergence-free; Dirichlet rows of the
-        # correction vanish (Minv_free masks), so BCs stay intact
-        u_new = ustar + (dt / g0) * Minv_free(s.grad_from_p(dp))
-        return self._pack(u_new, p0 + dp, u0, ulag0, E0, nlag0, dp0, dp)
+        with tracing.span("step.projection"):
+            # ---- projection: discretely divergence-free; Dirichlet rows of the
+            # correction vanish (Minv_free masks), so BCs stay intact
+            u_new = ustar + (dt / g0) * Minv_free(s.grad_from_p(dp))
+            return self._pack(u_new, p0 + dp, u0, ulag0, E0, nlag0, dp0, dp)
 
     def _scalars(self, fields, ET0, t_bc, g0, b, a, dt) -> Tuple:
         """One advection-diffusion Helmholtz solve per scalar (plain PCG,

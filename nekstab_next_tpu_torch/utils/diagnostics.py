@@ -18,7 +18,6 @@ import torch
 
 from ..mesh.gll import diff_matrix, gll_points_weights
 from ..mesh.mesh import BoundaryCondition as BC, Mesh2D, edge_node_indices
-from ..postproc.vortex import velocity_gradient
 
 
 def total_energy(sem, u: torch.Tensor) -> torch.Tensor:
@@ -164,6 +163,10 @@ def surface_force_and_torque(
     du_j/dx_i)] n_j with n pointing from the body into the fluid.  A Gauss
     (PnPn-2) pressure is interpolated to the GLL nodes first.  The torque
     reads the node coordinates of ``sem.mesh``."""
+    # here, not at the top: postproc imports the stepper, whose solves
+    # import utils (tracing)
+    from ..postproc.vortex import velocity_gradient
+
     mesh = sem.mesh
     if tuple(p.shape) != tuple(sem.bm.shape):
         p = sem.p_to_gll(p)

@@ -274,7 +274,7 @@ def _jax_def(module: str, qual: str):
 def _jax_repo_files():
     """Every Python file of the JAX repository: the package, its examples,
     tools and tests, and the root scripts; none of the port's."""
-    port = ("chip_smoke.py", "profile_torch.py")
+    port = ("chip_smoke.py",)
     files = list(MODULES.values())
     for d in ("examples", "tools", "tests"):
         files += sorted((ROOT / d).glob("*.py"))

@@ -23,6 +23,7 @@ from nekstab_next_tpu_torch.ops.fused_cg import FusedHelmholtzCG, FusedPressureC
 from nekstab_next_tpu_torch.ops.fused_helmholtz import FusedHelmholtz
 from nekstab_next_tpu_torch.stepper.linearized import LinearizedOperator
 from nekstab_next_tpu_torch.stepper.navier_stokes import NavierStokes
+from nekstab_next_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 MESH = dict(nr=4, ntheta=8, order=6)
@@ -258,14 +259,32 @@ def test_cg_kernels_at_tol_zero(case, maxiter):
     rhs = make_projector(sem, sem.vmask)(torch.as_tensor(
         rng.standard_normal(tuple(sem.bm.shape) + (2,)), dtype=torch.float32, device="cuda"))
     k1 = FusedHelmholtzCG(sem, sem.vmask, maxiter=maxiter, tol=0.0)
-    got, (ref, it) = k1.solve(rhs, 0.0167, 100.0), k1.plain(rhs, 0.0167, 100.0, return_iters=True)
-    assert it == maxiter and k1.last_barriers() == 2 + 4 * maxiter
+    tracing.enable()
+    try:
+        got = k1.solve(rhs, 0.0167, 100.0)
+    finally:
+        tracing.disable()
+    ref, it = k1.plain(rhs, 0.0167, 100.0, return_iters=True)
+    assert it == maxiter and barriers(k1) == 2 + 4 * maxiter
+    assert tracing.take().iterations["k1"] == [maxiter]  # the program's iteration log
     assert rel(got, ref) < 1e-5
     rhs_p = torch.as_tensor(rng.standard_normal(sem.p_shape), dtype=torch.float32, device="cuda")
     k2 = FusedPressureCG(sem, maxiter=maxiter, tol=0.0)
-    got, (ref, it) = k2.solve(rhs_p), k2.plain(rhs_p, return_iters=True)
-    assert it == maxiter and k2.last_barriers() == 2 + 4 * maxiter
+    tracing.enable()
+    try:
+        got = k2.solve(rhs_p)
+    finally:
+        tracing.disable()
+    ref, it = k2.plain(rhs_p, return_iters=True)
+    assert it == maxiter and barriers(k2) == 2 + 4 * maxiter
+    assert tracing.take().iterations["k2"] == [maxiter]
     assert rel(got, ref) < 1e-3  # capped iterates: roundoff-sensitive
+
+
+def barriers(k) -> int:
+    """Grid barriers the kernel's last launch crossed, from its counter
+    (every block adds one a barrier); synchronises."""
+    return int(k._sync[4 * k.E:].view(torch.int32)[0]) // k.grid
 
 
 def test_cg_kernels_on_a_mesh_larger_than_the_grid(case):
