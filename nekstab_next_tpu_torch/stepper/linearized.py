@@ -57,6 +57,11 @@ built once) and the explicit term's tangent about ``u_n`` (one small
 ``vjp`` a step, no solves), so an f32 transpose launches K1 and K2 once
 each per step in its backward, as ``rmatvec`` does.
 
+About a frozen base on CUDA, with every solve a K1/K2 launch, ``integrate``
+replays each step from CUDA graphs split at the fused solves
+(``stepper/graphs.py``); the transposes, orbits and every other route run
+the steps eagerly.
+
 Spans (``utils/tracing.py``): ``prop.matvec`` and ``prop.rmatvec`` around
 :class:`LinearizedOperator`'s applications, and ``step`` around each
 stage ``vjp`` an ``rmatvec`` applies (its backward's solves are its
@@ -70,6 +75,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import torch
 
 from ..utils import tracing
+from .graphs import StepGraphs
 from .navier_stokes import NavierStokes
 
 # a velocity field, or the (u, T) pair of a stepper with scalars
@@ -104,6 +110,8 @@ class TangentSteps:
         self.final: Optional[torch.Tensor] = None  # the orbit's end state (along_orbit)
         self._stage_vjps: List[Callable] = []
         self._explicit_vjp: Optional[Callable] = None  # a frozen base's, built once
+        # the CUDA graphs of integrate and the counts of steps by how they ran
+        self.graphs = StepGraphs()
 
     @classmethod
     def along_orbit(cls, ns: NavierStokes, base_u: torch.Tensor,
@@ -159,10 +167,14 @@ class TangentSteps:
     def integrate(self, q: torch.Tensor, nsteps: int,
                   forcing: Optional[Callable[[int], torch.Tensor]] = None) -> torch.Tensor:
         """``nsteps`` tangent steps from the zero history seeded with q,
-        step n forced by ``forcing(n)``."""
+        step n forced by ``forcing(n)``: replayed from CUDA graphs where
+        ``stepper/graphs.py`` :func:`graph_refusal` allows, else eagerly."""
+        if self.graphs.engages(self, q, forcing):
+            return self.graphs.integrate(self, q, nsteps)
         df = self.fields(q)
         for n in range(nsteps):
             df = self.step(df, n, None if forcing is None else forcing(n))
+        self.graphs.ran_eager(nsteps)
         return self.out(df)
 
     # -- transpose -----------------------------------------------------
@@ -218,6 +230,7 @@ class TangentSteps:
                 ct = (ct_df[0] + c,) + tuple(ct_df[1:])
             if forcing_ct is not None:
                 forcing_ct(n, bm * ct_E)
+        self.graphs.ran_eager(nsteps)
         return self.out(ct)
 
 
@@ -325,6 +338,7 @@ class LinearizedOperator:
             for i in reversed(range(self.nsteps)):
                 with tracing.span("step"):
                     (ct,) = vjps[min(i, 2)](ct)
+            self.steps.graphs.ran_eager(self.nsteps)
             return self._mass_unweight(self.steps.out(ct))
 
 

@@ -53,6 +53,10 @@ On a shard view of the SEM (``parallel/sharded.py``) the same step runs on
 one rank's elements; the SEM's sums and dots are collectives, and no
 kernel is built.
 
+Every fused solve goes through :meth:`NavierStokes._fused`, which a CUDA
+graph capture of the tangent step (``stepper/graphs.py``) turns into the
+holes between its graph segments.
+
 Spans (``utils/tracing.py``): ``step`` around :meth:`_core`, inside it
 ``step.explicit`` (the explicit terms and lifts), ``step.velocity`` (the
 velocity RHS and solve, to ``ustar``), ``step.pressure`` (its RHS and
@@ -278,6 +282,8 @@ class NavierStokes:
                 )
         # refinement cycles of both solves: 0 (one plain solve) off fused-IR
         self._ir_cycles = int(solver.mixed_ir_cycles) if self._mixed_ir else 0
+        # set while stepper/graphs.py captures a step: takes each fused solve
+        self._hole: Optional[Callable] = None
 
     # ------------------------------------------------------------------
     @property
@@ -392,6 +398,15 @@ class NavierStokes:
         if self.u_bc_fn is None:
             return self.u_bc
         return self.u_bc + (1.0 - self.sem.vmask) * self.u_bc_fn(time + dt)
+
+    def _fused(self, kernel: str, r: torch.Tensor, *args) -> torch.Tensor:
+        """One fused inner solve on ``r``: ``solve`` of the kernel instance
+        ``kernel`` (``'fused_v'``, ``'fused_p'``), looked up at the call, so
+        a wrapper on it sees every launch; while a step is captured as CUDA
+        graphs (``stepper/graphs.py``), the capture's hole instead."""
+        if self._hole is not None:
+            return self._hole(kernel, r, args)
+        return getattr(self, kernel).solve(r, *args)
 
     # ------------------------------------------------------------------
     def step(self, state: FlowState, fc=None, dt: Optional[float] = None) -> FlowState:
@@ -508,9 +523,8 @@ class NavierStokes:
                     x0v = torch.zeros_like(u0)
                 fused_v = None
                 if self.fused_v is not None:
-                    fv = self.fused_v
                     # the kernels take contiguous tensors; einsum outputs may be views
-                    fused_v = lambda r: fv.solve(r.contiguous(), self.nu, h2)
+                    fused_v = lambda r: self._fused("fused_v", r.contiguous(), self.nu, h2)
                 w = x0v + elliptic_solve(
                     s,
                     helm_local,
@@ -590,7 +604,7 @@ class NavierStokes:
                 dot=lambda x, y: s.glsum(x * y),
                 project=project,
                 fused_solve=(
-                    (lambda r: self.fused_p.solve(r.contiguous()))
+                    (lambda r: self._fused("fused_p", r.contiguous()))
                     if self.fused_p is not None else None
                 ),
                 ir_cycles=self._ir_cycles,

@@ -14,7 +14,10 @@ A span that an exception leaves is recorded too.  While a
 on the kernels' clock.
 
 Counters: each CG kernel's iterations a launch (:class:`IterationLog`),
-written by ``ops/fused_cg.py`` while tracing is on.
+written by ``ops/fused_cg.py`` while tracing is on; named counts
+(:func:`count`), such as the tangent steps that ``stepper/graphs.py``
+replays from CUDA graphs, runs eagerly and captures (``graph.replayed``,
+``graph.eager``, ``graph.captures``).
 
 ``take()`` returns what was recorded and clears it; nothing is written
 anywhere else: the caller writes out what it reads.
@@ -41,12 +44,14 @@ class Records(NamedTuple):
     spans: List[Span]  # in the order they closed
     iterations: Dict[str, List[int]]  # kernel -> CG iterations of each launch
     overflow: Dict[str, int]  # kernel -> launches a full log did not keep
+    counters: Dict[str, int]  # name -> count (:func:`count`)
 
 
 _on = False
 _stack: list = []  # the open spans, innermost last
 _spans: List[Span] = []
 _logs: Dict[str, "IterationLog"] = {}
+_counts: Dict[str, int] = collections.Counter()
 _ids = itertools.count(1)
 
 
@@ -156,6 +161,12 @@ def iteration_log(kernel: str) -> Optional[IterationLog]:
     return _logs.setdefault(kernel, IterationLog()) if _on else None
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if _on:
+        _counts[name] += n
+
+
 def enable() -> None:
     global _on
     _on = True
@@ -171,4 +182,6 @@ def take() -> Records:
     spans = list(_spans)
     _spans.clear()
     overflow = {k: log.overflow for k, log in _logs.items()}
-    return Records(spans, {k: log.read() for k, log in _logs.items()}, overflow)
+    counters = dict(_counts)
+    _counts.clear()
+    return Records(spans, {k: log.read() for k, log in _logs.items()}, overflow, counters)

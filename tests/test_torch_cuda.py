@@ -562,3 +562,128 @@ def test_fst_and_consistent_steps_on_the_card_match_the_cpu(case, path):
     gpu, cpu = run("cuda"), run("cpu")
     assert bool(torch.isfinite(gpu).all())
     assert float((gpu - cpu).abs().max() / cpu.abs().max()) <= 1e-12
+
+
+# -- the frozen-base tangent step replayed from CUDA graphs split at the
+# fused solves (stepper/graphs.py), against the eager steps
+
+def _graph_case(case, route):
+    """The cut cylinder on the f32 fused route (``case``) or the fused-IR
+    route."""
+    if route == "f32":
+        return case
+    return CylinderCase(**MESH, device="cuda", mixed_precision=True,
+                        solver=SolverConfig(**MIXED))
+
+
+def _graph_input(cyl, seed=7):
+    return cyl.sem.vmask * torch.as_tensor(
+        np.random.default_rng(seed).standard_normal(tuple(cyl.sem.bm.shape) + (2,)),
+        dtype=cyl.sem.dtype, device="cuda")
+
+
+def _refuse_graphs(monkeypatch):
+    from nekstab_next_tpu_torch.stepper import graphs
+
+    monkeypatch.setattr(graphs, "graph_refusal", lambda *a, **k: "refused by the test")
+
+
+def _traced_matvec(ns, op, q):
+    """The matvec, the K1/K2 launches it made, and what tracing recorded."""
+    ns.fused_v.launches = ns.fused_p.launches = 0
+    tracing.enable()
+    try:
+        y = op.matvec(q)
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    return y, (ns.fused_v.launches, ns.fused_p.launches), tracing.take()
+
+
+@pytest.mark.parametrize("route", ["fused_ir", "f32"])
+def test_graphed_matvec_equals_the_eager_one(case, monkeypatch, route):
+    cyl = _graph_case(case, route)
+    ns = cyl.make_ns()
+    nsteps = 5
+    q = _graph_input(cyl)
+    with monkeypatch.context() as m:
+        _refuse_graphs(m)
+        eager = LinearizedOperator(ns, cyl.uniform_flow(), nsteps=nsteps)
+        y_e, launches_e, rec_e = _traced_matvec(ns, eager, q)
+    assert eager.steps.graphs.replayed == 0 and eager.steps.graphs.eager == nsteps
+    op = LinearizedOperator(ns, cyl.uniform_flow(), nsteps=nsteps)
+    per_step = ns._ir_cycles or 1
+    for first in (True, False):  # the first application captures its stages
+        y, launches, rec = _traced_matvec(ns, op, q)
+        print(f"graphs: {route} {'first' if first else 'second'} matvec bitwise equal "
+              f"{torch.equal(y, y_e)} rel {rel(y, y_e):.3e}")
+        assert rel(y, y_e) < 1e-14
+        assert launches == launches_e == (nsteps * per_step, nsteps * per_step)
+        assert rec.iterations == rec_e.iterations  # launch for launch
+        assert rec.counters == dict({"graph.replayed": nsteps},
+                                    **({"graph.captures": 3} if first else {}))
+        assert sum(s.name == "step.graph" for s in rec.spans) == nsteps * (2 * per_step + 1)
+    g = op.steps.graphs
+    assert (g.refusal, g.replayed, g.eager, g.captures) == (None, 2 * nsteps, 0, 3)
+    assert rec_e.counters == {"graph.eager": nsteps}
+
+
+@pytest.mark.parametrize("path", ["rmatvec", "orbit", "plain_f64", "legacy_mixed"])
+def test_graphs_stay_off_the_other_routes(case, path):
+    from nekstab_next_tpu_torch.stepper.linearized import TangentSteps
+
+    nsteps = 3
+    if path in ("rmatvec", "orbit"):
+        cyl = _graph_case(case, "fused_ir")
+    else:
+        cyl = CylinderCase(**MESH, device="cuda", mixed_precision=path == "legacy_mixed",
+                           solver=SolverConfig(**dict(MIXED, fused_solves=False)))
+        nsteps = 1
+    ns = cyl.make_ns()
+    q = _graph_input(cyl)
+    if path == "orbit":
+        steps = TangentSteps.along_orbit(ns, cyl.uniform_flow(), None, nsteps)
+        y = steps.integrate(q, nsteps)
+    else:
+        op = LinearizedOperator(ns, cyl.uniform_flow(), nsteps=nsteps)
+        y = op.rmatvec(q) if path == "rmatvec" else op.matvec(q)
+        steps = op.steps
+    torch.cuda.synchronize()
+    g = steps.graphs
+    reason = {"rmatvec": None, "orbit": "orbit base", "plain_f64": "plain solves",
+              "legacy_mixed": "legacy mixed path"}[path]
+    assert (g.refusal, g.replayed, g.eager, g.captures) == (reason, 0, nsteps, 0)
+    assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("route", ["fused_ir", "f32"])
+def test_graphed_tangent_propagator_is_not_slower(case, monkeypatch, route):
+    # make_tangent_propagator builds an operator a call (Newton's
+    # re-linearisation), so every graphed call captures its three stages
+    import statistics
+    import time
+
+    from nekstab_next_tpu_torch.stepper.linearized import make_tangent_propagator
+
+    cyl = _graph_case(case, route)
+    apply = make_tangent_propagator(cyl.make_ns(), 65)
+    base, q = cyl.uniform_flow(), _graph_input(cyl)
+
+    def timed(graphed: bool) -> float:
+        with monkeypatch.context() as m:
+            if not graphed:
+                _refuse_graphs(m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply(base, None, q, cyl.dt)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    timed(True), timed(False)  # warm-up
+    t = {True: [], False: []}
+    for graphed in (False, True, True, False, False, True):
+        t[graphed].append(timed(graphed))
+    g, e = statistics.median(t[True]), statistics.median(t[False])
+    print(f"graphs: {route} make_tangent_propagator 65 steps graphed {1e3 * g:.1f} ms "
+          f"eager {1e3 * e:.1f} ms ({torch.cuda.get_device_name()})")
+    assert g < e
